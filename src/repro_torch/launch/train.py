@@ -1,0 +1,186 @@
+"""FL training entry point of the port: ``--mode paper``.
+
+The paper-faithful simulation: N edge clients with CNNs on a synthetic
+non-IID/imbalanced image dataset, gradient clustering + per-cluster
+auction selection, FedAvg/FedProx aggregation and energy accounting, on
+the ``sequential`` runtime.  It takes the JAX CLI's flags with the
+same defaults (``python -m repro.launch.train``), plus ``--device``:
+
+  python -m repro_torch.launch.train --mode paper              # on cuda
+  python -m repro_torch.launch.train --mode paper --device cpu
+
+The run is on the GPU unless ``--device cpu`` is given; ``cuda`` with no
+GPU raises.  TF32 is switched off for matmuls and cuDNN, so float32 stays
+float32.  A flag whose feature is not ported yet is still parsed, and a
+non-default value raises ``NotImplementedError`` (ROADMAP.md, queue 1).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+from typing import List, Optional
+
+import torch
+
+from repro_torch import obs
+from repro_torch.configs.base import FLConfig
+from repro_torch.core.adapters import cnn_adapter
+from repro_torch.core.server import FederatedServer
+from repro_torch.data.partition import partition_clients
+from repro_torch.data.synthetic import make_image_dataset
+from repro_torch.device import resolve_device
+
+# flags of the JAX CLI whose features the port does not have yet
+UNPORTED_FLAGS = (
+    "arch", "fedcs_deadline", "cohort_devices", "churn", "deadline",
+    "straggler_profile", "aggregation", "buffer_goal", "buffer_timeout",
+    "adversary_frac", "attack", "attack_scale", "defense", "defense_mode",
+    "reputation_mode", "watchdog", "watchdog_ring", "checkpoint_every",
+    "checkpoint_path", "resume", "no_warm_rerun", "log_jsonl", "log_csv",
+    "profile_dir", "audit_sync")
+
+
+def set_float32_precision() -> None:
+    """Full float32 everywhere: no TF32 in matmuls or cuDNN."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def run_paper(args, device: torch.device) -> dict:
+    cfg = FLConfig(
+        num_clients=args.clients, num_clusters=args.clusters,
+        select_ratio=args.select_ratio, rounds=args.rounds,
+        local_epochs=args.local_epochs, lr=args.lr,
+        non_iid_level=args.nu, scheme=args.scheme,
+        scheme_select=args.scheme_select, aggregator=args.aggregator,
+        init_energy_mode=args.energy_mode, runtime=args.runtime,
+        eval_every=args.eval_every, seed=args.seed)
+    train, test = make_image_dataset(args.dataset, n_train=args.pool,
+                                     n_test=args.pool // 6, seed=args.seed,
+                                     device=device)
+    clients = partition_clients(train.y, cfg, seed=args.seed)
+    adapter = cnn_adapter(args.dataset, device)
+    ntest = min(1000, len(test.x))
+    srv = FederatedServer(cfg, adapter, train.x, train.y, clients,
+                          {"x": test.x[:ntest], "y": test.y[:ntest]},
+                          device=device)
+    t0 = time.time()
+    logs = srv.run(verbose=not args.quiet)
+    return {
+        "mode": "paper", "scheme": args.scheme,
+        "scheme_select": args.scheme_select, "nu": args.nu,
+        "aggregator": args.aggregator, "dataset": args.dataset,
+        "runtime": args.runtime, "device": str(device),
+        "rounds": [l.round for l in logs],
+        "test_acc": [l.test_acc for l in logs],
+        "test_loss": [l.test_loss for l in logs],
+        "energy_std": [l.energy_std for l in logs],
+        "mean_bid": [l.mean_bid for l in logs],
+        "server_reward": [l.server_reward for l in logs],
+        "client_reward_sum": [l.client_reward_sum for l in logs],
+        "vds_gap": [l.vds_gap for l in logs],
+        "selected": [l.selected.tolist() for l in logs],
+        "num_selected": [int(l.selected.size) for l in logs],
+        "params_finite": all(bool(torch.isfinite(v).all())
+                             for v in srv.params.values()),
+        "wall_s": time.time() - t0,
+    }
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--mode", default="paper",
+                    choices=["paper", "transformer", "selection"])
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where the run executes (cuda raises without a "
+                         "GPU; there is no silent CPU fallback)")
+    ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--dataset", default="mnist",
+                    choices=["mnist", "fmnist", "cifar"])
+    ap.add_argument("--scheme", default="gradient_cluster_auction")
+    ap.add_argument("--scheme-select", default="paper",
+                    choices=["paper", "random", "fedcs",
+                             "longterm_auction"])
+    ap.add_argument("--fedcs-deadline", type=float, default=1.5)
+    ap.add_argument("--aggregator", default="fedavg",
+                    choices=["fedavg", "fedprox"])
+    ap.add_argument("--runtime", default="sequential",
+                    choices=["sequential", "vectorized", "sharded",
+                             "device"])
+    ap.add_argument("--cohort-devices", type=int, default=0)
+    ap.add_argument("--eval-every", type=int, default=1)
+    ap.add_argument("--clients", type=int, default=100)
+    ap.add_argument("--clusters", type=int, default=10)
+    ap.add_argument("--select-ratio", type=float, default=0.1)
+    ap.add_argument("--rounds", type=int, default=30)
+    ap.add_argument("--local-epochs", type=int, default=1)
+    ap.add_argument("--lr", type=float, default=0.05)
+    ap.add_argument("--nu", type=float, default=1.0)
+    ap.add_argument("--pool", type=int, default=12000)
+    ap.add_argument("--energy-mode", default="normal",
+                    choices=["full", "normal"])
+    ap.add_argument("--churn", type=float, default=0.0)
+    ap.add_argument("--deadline", type=float, default=0.0)
+    ap.add_argument("--straggler-profile", default="energy",
+                    choices=["energy", "uniform", "lognormal", "none"])
+    ap.add_argument("--aggregation", default="sync",
+                    choices=["sync", "buffered"])
+    ap.add_argument("--buffer-goal", type=int, default=4)
+    ap.add_argument("--buffer-timeout", type=int, default=4)
+    ap.add_argument("--adversary-frac", type=float, default=0.0)
+    ap.add_argument("--attack", default="none",
+                    choices=["none", "nan", "scale", "signflip", "noise",
+                             "sub_clip", "alie", "on_off"])
+    ap.add_argument("--attack-scale", type=float, default=25.0)
+    ap.add_argument("--defense", default="none",
+                    choices=["none", "clip", "trimmed", "median"])
+    ap.add_argument("--defense-mode", default="static",
+                    choices=["static", "adaptive"])
+    ap.add_argument("--reputation-mode", default="ban",
+                    choices=["ban", "price"])
+    ap.add_argument("--watchdog", default="off", choices=["off", "on"])
+    ap.add_argument("--watchdog-ring", type=int, default=3)
+    ap.add_argument("--checkpoint-every", type=int, default=0)
+    ap.add_argument("--checkpoint-path", default=None, metavar="PATH")
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--no-warm-rerun", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--quiet", action="store_true")
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--log-jsonl", default=None, metavar="PATH")
+    ap.add_argument("--log-csv", default=None, metavar="PATH")
+    ap.add_argument("--profile-dir", default=None, metavar="DIR")
+    ap.add_argument("--audit-sync", action="store_true")
+    return ap
+
+
+def main(argv: Optional[List[str]] = None) -> dict:
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.mode != "paper":
+        raise NotImplementedError(
+            f"--mode {args.mode} is not ported yet (ROADMAP.md, queue 1)")
+    for dest in UNPORTED_FLAGS:
+        if getattr(args, dest) != ap.get_default(dest):
+            raise NotImplementedError(
+                f"--{dest.replace('_', '-')} is not ported yet "
+                "(ROADMAP.md, queue 1); leave it at its default")
+    set_float32_precision()
+    device = resolve_device(args.device)
+    obs.configure(quiet=args.quiet)
+    result = run_paper(args, device)
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+        obs.log(f"wrote {args.out}", always=True)
+    obs.log(f"final acc={result['test_acc'][-1]:.3f} "
+            f"energy_std={result['energy_std'][-1]:.3f} "
+            f"wall={result['wall_s']:.0f}s", always=True)
+    return result
+
+
+if __name__ == "__main__":
+    main()
