@@ -5,27 +5,42 @@
 
 1. Prints the card's name and power limit (nvidia-smi) and switches TF32
    off for matmuls and cuDNN.
-2. Builds the port's CUDA kernel from the checkout and prints the build
-   seconds and the ptxas report.
-3. Kernel phase: holds the kernel's wrapper (``ops.lloyd_step``, the
-   call the main path makes) against its plain PyTorch version on the
-   card, at the main path's shape and at the other shapes listed in
-   KERNEL_SHAPES, and times both (median of 20 runs, CUDA events).
-4. Main path: sets every launch count to 0, runs the port's
+2. Builds the port's two CUDA sources from the checkout (one nvcc each,
+   started together) and prints the build seconds and the ptxas report.
+3. Kernel phases: holds each kernel's wrapper (``ops.lloyd_step``,
+   ``ops.kmeans_assign``, ``ops.flash_attention``, the calls the paths
+   make) against its plain PyTorch version on the card, at the paths'
+   shapes and at the other shapes listed in KERNEL_SHAPES and
+   FLASH_SHAPES, and times both (median of 20 runs, CUDA events), and
+   flash attention also against ``scaled_dot_product_attention`` (the
+   library yardstick; the port never calls it).
+4. Paper path: sets every launch count to 0, runs the port's
    ``--mode paper`` with the reference defaults (100 clients, 10
    clusters, 12,000-image pool, the CNN-MNIST, seed 0) for 3 rounds on
    cuda, reads the counts, and checks them and the round logs; each
    round must pick the clients the JAX package picks with these
    defaults (REFERENCE_WINNERS).
-5. Agreement: the same main path on the CPU, where every kernel is its
-   plain version (the path the CPU tests hold against the JAX package),
-   must select the same clients every round, with the same round metrics.
+5. Agreement: the same path on the CPU, where every kernel is its plain
+   version (the path the CPU tests hold against the JAX package), must
+   select the same clients every round, with the same round metrics.
+6. Stage-1 assign path: the same run with k-means' ``assign_fn`` hook
+   set to ``ops.kmeans_assign`` (as ``FederatedServer(assign_fn=...)``
+   takes it), counts reset before and read after; it must pick the
+   same winners.
+7. Serving path at full width: qwen2-0.5b (24 layers, bf16, weights
+   from ``init_params(cfg, PRNGKey(0))``) with ``attn_impl="pallas"``:
+   ``logits_fn`` prefill of 4,096 tokens, counts reset before and read
+   after (24 flash_attention launches), held against the plain
+   ``attn_impl="naive"`` path; teacher-forced ``decode_step`` over 1,536
+   tokens held against the kernel prefill; and ``serve`` of 4 x 32
+   tokens, whose ids must be the argmax of the logits that made them.
 
 It prints one JSON line with the kernels' numbers and, last, the JSON
 status line.  ``--profile`` adds a torch.profiler pass before them:
-device time by kernel for the fleet-shape Lloyd step and for one more
-main-path run, and that run's device-busy share of its wall time (it
-adds minutes, so the plain smoke run leaves it out).  Without a CUDA
+device time by kernel for the fleet-shape Lloyd step, for one more
+paper-path run, for a warm prefill and for 32 decode steps, and each
+run's device-busy share of its wall time (it adds minutes, so the plain
+smoke run leaves it out).  Without a CUDA
 device, or run outside a checkout, it exits non-zero and prints no
 result.  Any failed check raises.
 """
@@ -45,8 +60,9 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): float32
-# outside the tensor cores, and HBM3 bandwidth
+# outside the tensor cores, bf16 on the tensor cores, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
 # (label, N, F, K, R, dtype, seed); "main" is the shape stage 1 of the
@@ -66,6 +82,29 @@ MAIN_ARGS = ["--rounds", "3", "--quiet"]          # reference defaults else
 # port's CPU run and the JAX run to the same sets.
 REFERENCE_WINNERS = [[1, 35, 40], [12, 35, 36, 41, 49, 58, 60, 63],
                      [0, 1, 3, 19, 35, 36, 44, 58, 62]]
+# (label, B, S, H, hd, dtype, causal, window); "qwen2" is the shape
+# qwen2-0.5b's prefill of 4,096 tokens gives the kernel (14 heads after
+# the GQA expansion), "window" starcoder2-3b's sliding window at 8,192
+# tokens, "ragged" a length off the 64-key tiles with head_dim 96
+FLASH_SHAPES = (
+    ("qwen2", 1, 4096, 14, 64, torch.bfloat16, True, 0),
+    ("window", 1, 8192, 24, 128, torch.bfloat16, True, 4096),
+    ("ragged", 2, 1100, 3, 96, torch.float32, False, 0),
+)
+# per-element bound against the plain version, |out - want| <= atol +
+# rtol * |want|.  Both compute in fp32 and differ only in the order of
+# the fp32 sums (about 1e-6 here, under atol = 1e-4); a bf16 output then
+# rounds the two fp32 values to at most one bf16 unit apart, and one unit
+# is at most 2^-7 of the value (7 stored mantissa bits), so rtol = 2^-7.
+# Outputs are averages of unit-variance values over up to 8,192 keys
+# (typically 0.02-0.05), so a key dropped from a row or a window edge one
+# key off moves some element by more than this bound.
+FLASH_TOL = {torch.bfloat16: (2.0 ** -7, 1e-4), torch.float32: (0.0, 1e-4)}
+ARCH = "qwen2-0.5b"
+PREFILL_LEN = 4096
+DECODE_LEN = 1536          # > 1024, so logits_fn runs the kernel
+# the bound tests/test_models.py holds decode to against the forward pass
+LOGITS_REL_TOL = 2e-2
 
 
 def require(cond: bool, msg: str) -> None:
@@ -159,6 +198,281 @@ def check_lloyd(OPS, dev, label, n, f, k, r, dtype, seed):
             "bound_by": bound_by, "max_abs_err": err}
 
 
+def assign_bound(n, f, k, x_bytes):
+    """Least time for one assign step: x and c read once, labels and
+    distances written once, against the fp32 FMA work."""
+    moved = n * f * x_bytes + k * f * 4 + n * 8
+    ops = 2 * n * k * f + 2 * n * f + 2 * k * f
+    t_bytes, t_ops = moved / PEAK_HBM_BYTES, ops / PEAK_FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_assign(OPS, dev, label, n, f, k, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, f, device=dev, generator=g).to(dtype)
+    c = torch.randn(k, f, device=dev, generator=g)
+    before = OPS.kmeans_assign.launches
+    lab, dist = OPS.kmeans_assign(x, c)
+    torch.cuda.synchronize()
+    require(OPS.kmeans_assign.launches == before + 1,
+            f"assign {label}: the wrapper did not count exactly one launch")
+    lab_p, dist_p = OPS._kmeans_assign_torch(x, c)
+    # the plain version's distances, from the same (bf16) x
+    d = OPS.distances(x, c[None])[0]
+    torch.cuda.synchronize()
+    dist_err = (dist - dist_p).abs()
+    require(bool((dist_err <= 1e-4 * dist_p.abs().clamp_min(1.0)).all()),
+            f"assign {label}: dist beyond 1e-4 relative")
+    best2 = d.topk(2, dim=1, largest=False).values
+    clear = (best2[:, 1] - best2[:, 0]) > 1e-4 * best2[:, 0].abs()
+    if dtype == torch.float32:
+        require(torch.equal(lab[clear], lab_p[clear]),
+                f"assign {label}: labels differ off near-ties")
+        picked = torch.gather(d, 1, lab.long()[:, None])[:, 0]
+        require(bool((picked - best2[:, 0]
+                      <= 1e-4 * best2[:, 0].abs() + 1e-4).all()),
+                f"assign {label}: a near-tie label is not nearest")
+    ms = median_ms(lambda: OPS.kmeans_assign(x, c))
+    plain_ms = median_ms(lambda: OPS._kmeans_assign_torch(x, c))
+    bound_ms, bound_by = assign_bound(n, f, k, x.element_size())
+    err = float(dist_err.max())
+    print(f"kmeans_assign[{label}] N={n} F={f} K={k} "
+          f"{str(dtype).removeprefix('torch.')}: ms={ms!r} "
+          f"plain_ms={plain_ms!r} bound_ms={bound_ms!r} ({bound_by}) "
+          f"max_abs_err={err!r} near_tie_rows={int((~clear).sum())} "
+          f"label_mismatches={int((lab != lab_p).sum())}", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": err}
+
+
+def flash_pairs(sq, sk, causal, window):
+    """(query, key) pairs the masks leave, which is the work this run's
+    inputs need."""
+    q = torch.arange(sq, dtype=torch.float64)
+    hi = torch.clamp(q + 1, max=sk) if causal else torch.full_like(q, sk)
+    lo = torch.clamp(q - window + 1, min=0) if window > 0 \
+        else torch.zeros_like(q)
+    return int(torch.clamp(hi - lo, min=0).sum())
+
+
+def flash_bound(b, s, h, hd, dtype, causal, window):
+    """Least time: q, k, v read once and o written once, against
+    4*hd flops per unmasked (query, key) pair per head (two products),
+    on the bf16 tensor cores for bf16 and the fp32 CUDA cores for fp32."""
+    esize = torch.tensor([], dtype=dtype).element_size()
+    moved = 4 * b * s * h * hd * esize
+    ops = 4 * hd * b * h * flash_pairs(s, s, causal, window)
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    t_bytes, t_ops = moved / PEAK_HBM_BYTES, ops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_flash(OPS, dev, label, b, s, h, hd, dtype, causal, window, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(b, s, h, hd, device=dev, generator=g).to(dtype)
+               for _ in range(3))
+    before = OPS.flash_attention.launches
+    out = OPS.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    require(OPS.flash_attention.launches == before + 1,
+            f"flash {label}: the wrapper did not count exactly one launch")
+    want = OPS._flash_attention_torch(q, k, v, causal=causal, window=window)
+    require(out.dtype == dtype and out.shape == q.shape,
+            f"flash {label}: output {out.dtype} {tuple(out.shape)}")
+    diff = (out.float() - want.float()).abs()
+    err = float(diff.max())
+    rtol, atol = FLASH_TOL[dtype]
+    share = float((diff / (atol + rtol * want.float().abs())).max())
+    require(share <= 1.0,
+            f"flash {label}: error {err} (max abs) exceeds atol {atol} + "
+            f"rtol {rtol} * |want| by a factor {share}")
+    again = OPS.flash_attention(q, k, v, causal=causal, window=window)
+    require(torch.equal(out, again), f"flash {label}: two runs differ")
+    # the library yardstick, in its (B, H, S, hd) layout; the window
+    # shape passes its mask as an explicit boolean attn_mask
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if window > 0:
+        pos = torch.arange(s, device=dev)
+        mask = (pos[None, :] <= pos[:, None]) & \
+            (pos[None, :] > pos[:, None] - window)
+        lib = lambda: sdpa(qt, kt, vt, attn_mask=mask)
+    else:
+        lib = lambda: sdpa(qt, kt, vt, is_causal=causal)
+    lib_err = float((lib().transpose(1, 2).float() - want.float()).abs()
+                    .max())
+    ms = median_ms(lambda: OPS.flash_attention(q, k, v, causal=causal,
+                                               window=window))
+    plain_ms = median_ms(lambda: OPS._flash_attention_torch(
+        q, k, v, causal=causal, window=window))
+    library_ms = median_ms(lib)
+    bound_ms, bound_by = flash_bound(b, s, h, hd, dtype, causal, window)
+    print(f"flash_attention[{label}] B={b} S={s} H={h} hd={hd} "
+          f"{str(dtype).removeprefix('torch.')} causal={causal} "
+          f"window={window}: ms={ms!r} plain_ms={plain_ms!r} "
+          f"library_ms={library_ms!r} bound_ms={bound_ms!r} ({bound_by}) "
+          f"max_abs_err={err!r} share_of_bound={share!r} "
+          f"library_max_abs_err={lib_err!r}",
+          flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
+
+
+def serving_path(OPS, cuda) -> int:
+    """qwen2-0.5b at full width on the card: prefill through the kernel
+    against the plain path, decode against the kernel prefill, serve.
+    Returns the prefill's flash_attention launches."""
+    from repro_torch import rng
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as MD
+
+    cfg = get_config(ARCH).replace(attn_impl="pallas")
+    t = time.perf_counter()
+    params = MD.init_params(cfg, rng.PRNGKey(0), cuda)
+    torch.cuda.synchronize()
+    print(f"serving: {cfg.name} {cfg.num_layers} layers d_model="
+          f"{cfg.d_model} {cfg.dtype}: init_params "
+          f"{time.perf_counter() - t!r} s", flush=True)
+
+    # ---- prefill: logits_fn through the kernel, counts reset ----------
+    toks = rng.randint(rng.PRNGKey(1), (1, PREFILL_LEN), 0, cfg.vocab_size,
+                       cuda)
+    for name in ("lloyd_step", "kmeans_assign", "flash_attention"):
+        getattr(OPS, name).launches = 0
+    t = time.perf_counter()
+    logits = MD.logits_fn(cfg, params, toks)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    launches = OPS.flash_attention.launches
+    require(launches == cfg.num_layers,
+            f"prefill made {launches} flash_attention launches, expected "
+            f"{cfg.num_layers}")
+    require(OPS.lloyd_step.launches == OPS.kmeans_assign.launches == 0,
+            "prefill launched a k-means kernel")
+    t = time.perf_counter()
+    MD.logits_fn(cfg, params, toks)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    require(tuple(logits.shape) == (1, PREFILL_LEN, cfg.vocab_size)
+            and bool(torch.isfinite(logits).all()),
+            "prefill logits not finite or of the wrong shape")
+    plain = MD.logits_fn(cfg.replace(attn_impl="naive"), params, toks)
+    scale = plain.float().abs().max()
+    rel = float((logits.float() - plain.float()).abs().max() / scale)
+    # yardstick: the two plain paths differ by their fp32 sum order alone
+    chunked = MD.logits_fn(cfg.replace(attn_impl="chunked"), params, toks)
+    rel_chunked = float((chunked.float() - plain.float()).abs().max()
+                        / scale)
+    rel_k_chunked = float((logits.float() - chunked.float()).abs().max()
+                          / scale)
+    print(f"prefill: S={PREFILL_LEN} flash_attention launches={launches} "
+          f"wall_s first={first_s!r} warm={warm_s!r} tokens_per_s="
+          f"{PREFILL_LEN / warm_s!r} rel_err_vs_naive={rel!r} "
+          f"(chunked vs naive: {rel_chunked!r}, kernel vs chunked: "
+          f"{rel_k_chunked!r})", flush=True)
+    require(rel < LOGITS_REL_TOL,
+            f"kernel prefill vs naive: {rel} >= {LOGITS_REL_TOL}")
+    del logits, plain, chunked
+
+    # ---- teacher-forced decode against the kernel prefill -------------
+    toks = rng.randint(rng.PRNGKey(2), (1, DECODE_LEN), 0, cfg.vocab_size,
+                       cuda)
+    before = OPS.flash_attention.launches
+    full = MD.logits_fn(cfg, params, toks)[0].float()       # (S, V)
+    require(OPS.flash_attention.launches == before + cfg.num_layers,
+            "the decode reference prefill did not run the kernel")
+    state = MD.init_decode_state(cfg, 1, DECODE_LEN, cuda)
+    dmax = torch.zeros((), device=cuda)
+    t = time.perf_counter()
+    for p in range(DECODE_LEN):
+        lg, state = MD.decode_step(cfg, params, state, toks[:, p], p)
+        dmax = torch.maximum(dmax, (lg[0] - full[p]).abs().max())
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t
+    rel = float(dmax / full.abs().max())
+    print(f"decode: {DECODE_LEN} teacher-forced steps in {dec_s!r} s "
+          f"({DECODE_LEN / dec_s!r} steps/s), rel_err_vs_kernel_prefill="
+          f"{rel!r}", flush=True)
+    require(rel < LOGITS_REL_TOL,
+            f"decode vs kernel prefill: {rel} >= {LOGITS_REL_TOL}")
+    del full, state
+
+    # ---- serve 4 x 32 tokens; replay to check the ids -----------------
+    batch, prompt_len, gen = 4, 16, 32
+    out = serve(cfg, params, batch, prompt_len, gen, cuda)
+    ids = out["tokens"]
+    require(tuple(ids.shape) == (batch, gen), f"served {tuple(ids.shape)}")
+    seq = torch.cat([out["prompts"], ids.long()], dim=1)
+    state = MD.init_decode_state(cfg, batch, prompt_len + gen, cuda)
+    for p in range(prompt_len + gen - 1):
+        lg, state = MD.decode_step(cfg, params, state, seq[:, p], p)
+        if p >= prompt_len - 1:
+            got = lg.gather(1, seq[:, p + 1:p + 2])[:, 0]
+            require(bool((got == lg.max(dim=1).values).all()),
+                    f"served id at position {p + 1} is not the argmax of "
+                    "its logits")
+    print(f"serve: batch={batch} prompt_len={prompt_len} gen={gen} "
+          f"prefill_s={out['prefill_s']!r} decode_s={out['decode_s']!r} "
+          f"tokens_per_s={batch * gen / out['decode_s']!r} "
+          f"ids[0,:16]={ids[0, :16].tolist()}", flush=True)
+    return launches
+
+
+def _kernel_rows(prof):
+    cuda_t = torch.autograd.DeviceType.CUDA
+    return sorted((e for e in prof.key_averages()
+                   if e.device_type == cuda_t),
+                  key=lambda e: -e.self_device_time_total)
+
+
+def profile_serving(cuda) -> None:
+    """Device time by kernel and the busy share of the wall time for one
+    warm prefill of PREFILL_LEN tokens and for 32 decode steps of a
+    batch of 4 (torch.profiler, CUPTI)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import rng
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import model as MD
+
+    cfg = get_config(ARCH).replace(attn_impl="pallas")
+    params = MD.init_params(cfg, rng.PRNGKey(0), cuda)
+    toks = rng.randint(rng.PRNGKey(1), (1, PREFILL_LEN), 0, cfg.vocab_size,
+                       cuda)
+    step = make_serve_step(cfg)
+    MD.logits_fn(cfg, params, toks)
+
+    def decode():
+        state = MD.init_decode_state(cfg, 4, 48, cuda)
+        tok = toks[0, :4]
+        for p in range(32):
+            tok, state = step(params, state, tok, p)
+
+    decode()
+    for name, fn in (("prefill", lambda: MD.logits_fn(cfg, params, toks)),
+                     ("decode x32", decode)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        rows = _kernel_rows(prof)
+        busy = sum(e.self_device_time_total for e in rows) / 1e6
+        print(f"profile serving {name}: wall_s={wall!r} "
+              f"device_busy_s={busy!r} busy_share={busy / wall!r} "
+              f"kernel_launches={sum(e.count for e in rows)}", flush=True)
+        for e in rows[:8]:
+            print(f"  {e.key[:60]} count={e.count} "
+                  f"device_ms={e.self_device_time_total / 1e3!r}",
+                  flush=True)
+
+
 def profile_pass(OPS, TRAIN) -> None:
     """Device time by kernel (torch.profiler, CUPTI) for the fleet-shape
     Lloyd step and for a main-path run; the busy share is the summed
@@ -166,12 +480,6 @@ def profile_pass(OPS, TRAIN) -> None:
     overhead in the wall time)."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    cuda_t = torch.autograd.DeviceType.CUDA
-
-    def kernel_rows(prof):
-        return sorted((e for e in prof.key_averages()
-                       if e.device_type == cuda_t),
-                      key=lambda e: -e.self_device_time_total)
 
     g = torch.Generator(device="cuda").manual_seed(3)
     x = torch.randn(100_000, 256, device="cuda", generator=g)
@@ -182,7 +490,7 @@ def profile_pass(OPS, TRAIN) -> None:
         for _ in range(10):
             OPS.lloyd_step(x, c)
         torch.cuda.synchronize()
-    for e in kernel_rows(prof):
+    for e in _kernel_rows(prof):
         print(f"profile fleet lloyd_step: {e.key[:60]} count={e.count} "
               f"device_us_per_call={e.self_device_time_total / e.count!r}",
               flush=True)
@@ -191,7 +499,7 @@ def profile_pass(OPS, TRAIN) -> None:
         TRAIN.main(MAIN_ARGS)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    rows = kernel_rows(prof)
+    rows = _kernel_rows(prof)
     busy = sum(e.self_device_time_total for e in rows) / 1e6
     print(f"profile main path: wall_s={wall!r} device_busy_s={busy!r} "
           f"busy_share={busy / wall!r} kernels={len(rows)}", flush=True)
@@ -210,6 +518,8 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
     from repro_torch import obs
+    from repro_torch.kernels import build as BUILD
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import kmeans as KM
     from repro_torch.kernels import ops as OPS
     from repro_torch.launch import train as TRAIN
@@ -224,23 +534,41 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     TRAIN.set_float32_precision()
 
-    secs = KM.build()
-    print(f"built {KM.SOURCE.name} in {secs:.1f} s", flush=True)
-    print(KM.BUILD_LOG.strip(), flush=True)
+    libs = (KM.LIBRARY, FA.LIBRARY)
+    t = time.perf_counter()
+    BUILD.build(*libs)
+    print(f"built {', '.join(lib.source.name for lib in libs)} in "
+          f"{time.perf_counter() - t:.1f} s (each: "
+          f"{', '.join(f'{lib.build_s:.1f} s' for lib in libs)})",
+          flush=True)
+    for lib in libs:         # ptxas's registers, spills and smem per kernel
+        print("\n".join(line for line in lib.log.splitlines()
+                        if any(w in line for w in ("Compiling entry",
+                                                   "registers", "spill"))),
+              flush=True)
 
-    # ---- kernel phase --------------------------------------------------
-    phase("kernel phase", t0)
+    # ---- kernel phases -------------------------------------------------
+    phase("kernel phase: lloyd_step", t0)
     cuda = torch.device("cuda")
     shapes = {label: check_lloyd(OPS, cuda, label, n, f, k, r, dt, seed)
               for label, n, f, k, r, dt, seed in KERNEL_SHAPES}
+    phase("kernel phase: kmeans_assign", t0)
+    assign = {label: check_assign(OPS, cuda, label, n, f, k, dt, seed)
+              for label, n, f, k, _, dt, seed in KERNEL_SHAPES}
+    phase("kernel phase: flash_attention", t0)
+    flash = {label: check_flash(OPS, cuda, label, *shape, seed)
+             for seed, (label, *shape) in enumerate(FLASH_SHAPES)}
 
     # ---- main path -----------------------------------------------------
-    phase("main path", t0)
-    OPS.lloyd_step.launches = 0
+    phase("paper path", t0)
+    for name in ("lloyd_step", "kmeans_assign", "flash_attention"):
+        getattr(OPS, name).launches = 0
     obs.SPANS.clear()
     result = TRAIN.main(MAIN_ARGS)
     torch.cuda.synchronize()
     launches = OPS.lloyd_step.launches
+    require(OPS.kmeans_assign.launches == OPS.flash_attention.launches == 0,
+            "the paper path launched a kernel it does not use")
     stage1_s = obs.SPANS["run/cluster"]
     print(f"main path: stage1_s={stage1_s!r} "
           f"rounds_s={result['wall_s'] - stage1_s!r} "
@@ -277,20 +605,55 @@ def main() -> int:
           f"test_loss={plain['test_loss']!r} wall_s={plain['wall_s']!r}",
           flush=True)
 
+    # ---- stage-1 assign path ------------------------------------------
+    phase("stage-1 assign path", t0)
+    for name in ("lloyd_step", "kmeans_assign", "flash_attention"):
+        getattr(OPS, name).launches = 0
+    obs.SPANS.clear()
+    hooked = TRAIN.main(MAIN_ARGS,
+                        assign_fn=lambda x, c: OPS.kmeans_assign(x, c)[0])
+    torch.cuda.synchronize()
+    assign_launches = OPS.kmeans_assign.launches
+    print(f"assign path: stage1_s={obs.SPANS['run/cluster']!r} "
+          f"kmeans_s={obs.SPANS['cluster/kmeans']!r} "
+          f"kmeans_assign launches={assign_launches} selected="
+          f"{hooked['selected']}", flush=True)
+    require(assign_launches == 26 * 4,
+            f"stage 1 made {assign_launches} kmeans_assign launches, "
+            "expected 104 (26 per restart, 4 restarts)")
+    require(OPS.lloyd_step.launches == OPS.flash_attention.launches == 0,
+            "the assign path launched a kernel it does not use")
+    require(hooked["selected"] == REFERENCE_WINNERS,
+            f"with the assign hook the rounds selected {hooked['selected']}")
+
+    # ---- serving path --------------------------------------------------
+    phase("serving path", t0)
+    flash_launches = serving_path(OPS, cuda)
+
     if "--profile" in sys.argv[1:]:
         phase("profile", t0)
         profile_pass(OPS, TRAIN)
+        profile_serving(cuda)
 
     phase("done", t0)
-    main_shape = shapes["main"]
-    print(json.dumps({"kernels": [{
-        "name": "lloyd_step", "route": "cuda",
-        "source": "src/repro_torch/csrc/kmeans.cu",
-        "replaces": "src/repro/kernels/kmeans.py:144",
-        "launches": launches, "max_abs_err": main_shape["max_abs_err"],
-        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"], "library_ms": None}]}))
+
+    def row(name, source, replaces, n, m, library_ms):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": n,
+                "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                "bound_by": m["bound_by"], "library_ms": library_ms}
+
+    print(json.dumps({"kernels": [
+        row("lloyd_step", "src/repro_torch/csrc/kmeans.cu",
+            "src/repro/kernels/kmeans.py:144", launches, shapes["main"],
+            None),
+        row("kmeans_assign", "src/repro_torch/csrc/kmeans.cu",
+            "src/repro/kernels/kmeans.py:109", assign_launches,
+            assign["main"], None),
+        row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:81", flash_launches,
+            flash["qwen2"], flash["qwen2"]["library_ms"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,16 +1,190 @@
-"""Federated-learning system config (the paper, Table I defaults).
+"""Config system of the port: copies of the JAX package's two families.
 
-A copy of ``FLConfig`` from the JAX package, field for field and default
-for default, so one config object drives both packages.  The port runs
-only the slice of these knobs its modules implement; every other value
-is refused where it would be used (see ``repro_torch.core.server``).
+* :class:`ModelConfig` — architecture description for the model zoo
+  (dense / moe / ssm / hybrid / encdec(audio) / vlm), with its layer
+  ``cycle`` of (mixer, ffn) block kinds, plus :class:`ShapeConfig` and
+  ``INPUT_SHAPES``.  Field for field and default for default the JAX
+  package's, so one config drives both packages; the port's model code
+  runs the dense ``("attn", "mlp")`` cycles and refuses the rest (see
+  ``repro_torch.models.model``).
+* :class:`FLConfig` — the paper's federated-learning system knobs
+  (Table I defaults).  The port runs only the slice of these knobs its
+  modules implement; every other value is refused where it would be used
+  (see ``repro_torch.core.server``).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Tuple
 
 
+# Block kinds usable in a cycle. mixer: how tokens mix along the sequence;
+# ffn: the per-token channel mixer.
+MIXERS = ("attn", "mamba", "mlstm", "slstm")
+FFNS = ("mlp", "moe", "none")
+
+
+@dataclass(frozen=True)
+class BlockSpec:
+    """One position in an architecture's layer cycle."""
+
+    mixer: str = "attn"
+    ffn: str = "mlp"
+
+    def __post_init__(self):
+        assert self.mixer in MIXERS, self.mixer
+        assert self.ffn in FFNS, self.ffn
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture description. Shapes follow the assignment table."""
+
+    name: str
+    family: str                      # dense | moe | ssm | hybrid | encdec | vlm | audio
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+
+    # --- attention ---
+    head_dim: int = 0                # 0 -> d_model // num_heads
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0     # 0 -> no RoPE (see learned_pos)
+    learned_pos: bool = False        # learned absolute positions (whisper)
+    sliding_window: int = 0          # 0 -> full attention
+    mlp_kind: str = "swiglu"         # swiglu | gelu
+
+    # --- layer cycle (heterogeneous stacks) ---
+    cycle: Tuple[BlockSpec, ...] = (BlockSpec("attn", "mlp"),)
+
+    # --- MoE ---
+    num_experts: int = 0
+    experts_per_token: int = 0
+    d_ff_expert: int = 0             # expert hidden size (may differ from d_ff)
+    moe_capacity_factor: float = 1.25
+    router_jitter: float = 0.0
+
+    # --- Mamba (selective SSM) ---
+    mamba_d_state: int = 16
+    mamba_d_conv: int = 4
+    mamba_expand: int = 2
+    mamba_dt_rank: int = 0           # 0 -> ceil(d_model / 16)
+
+    # --- xLSTM ---
+    xlstm_num_heads: int = 4
+
+    # --- encoder-decoder (whisper-style audio) ---
+    encoder_layers: int = 0
+    encoder_seq: int = 1500          # stub frame-embedding count
+
+    # --- multimodal prefix (vlm) ---
+    num_prefix_tokens: int = 0       # patch embeddings occupying first slots
+
+    # --- numerics / misc ---
+    norm_eps: float = 1e-6
+    dtype: str = "bfloat16"          # parameter / activation dtype
+    tie_embeddings: bool = False
+    norm_kind: str = "rmsnorm"       # rmsnorm | layernorm
+    kv_cache_dtype: str = "auto"     # auto (= dtype) | bfloat16 | int8
+    # "auto" inherits the model dtype: a float32 model quietly caching K/V
+    # in bfloat16 loses ~3 decimal digits per slot, which discrete MoE
+    # routing amplifies into expert flips (decode no longer matches the
+    # forward pass). int8 stays an explicit serving opt-in.
+    attn_impl: str = "chunked"       # chunked (blockwise torch) | naive |
+    # pallas: the hand-written CUDA flash_attention (the name is the JAX
+    # package's, where it selects the Pallas TPU kernel)
+    remat: bool = True               # activation checkpointing over blocks
+    remat_policy: str = "nothing"    # nothing | save_block_out: keep each
+    # block's (seq-sharded) output so the backward pass skips the recompute
+    # forward — trades ~2 x L x B x S/16 x D bytes for one whole forward's
+    # FLOPs AND collectives (hillclimb lever, EXPERIMENTS.md §Perf).
+    fsdp_gather_weights: bool = False  # gather FSDP weight shards on use
+    # instead of computing sharded contractions (which all-reduces the much
+    # larger activations). Hillclimb lever — see EXPERIMENTS.md §Perf.
+    source: str = ""                 # citation for the config
+
+    # ------------------------------------------------------------------
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // self.num_heads)
+
+    @property
+    def cycle_len(self) -> int:
+        return len(self.cycle)
+
+    @property
+    def num_groups(self) -> int:
+        assert self.num_layers % self.cycle_len == 0, (
+            f"{self.name}: num_layers={self.num_layers} not divisible by "
+            f"cycle length {self.cycle_len}")
+        return self.num_layers // self.cycle_len
+
+    @property
+    def dt_rank(self) -> int:
+        return self.mamba_dt_rank or -(-self.d_model // 16)
+
+    @property
+    def mamba_d_inner(self) -> int:
+        return self.mamba_expand * self.d_model
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.encoder_layers > 0
+
+    @property
+    def resolved_kv_cache_dtype(self) -> str:
+        return self.dtype if self.kv_cache_dtype == "auto" \
+            else self.kv_cache_dtype
+
+    def supports_long_context(self) -> bool:
+        """True if decode state is sub-quadratic in context (prompt rule for
+        long_500k): recurrent mixers or bounded (sliding-window) KV."""
+        has_full_attn = any(b.mixer == "attn" for b in self.cycle)
+        if not has_full_attn:
+            return True                      # pure SSM / xLSTM
+        if self.sliding_window > 0:
+            return True                      # bounded KV window
+        # hybrid: a minority of full-attn layers still needs full KV, but the
+        # state is dominated by the recurrent layers; jamba runs 256k context
+        # in practice -> allow when attn layers are a strict minority.
+        n_attn = sum(b.mixer == "attn" for b in self.cycle)
+        return self.family == "hybrid" and n_attn * 2 < self.cycle_len
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One of the four assigned input shapes."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+INPUT_SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4_096, 256, "train"),
+    ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    ShapeConfig("long_500k", 524_288, 1, "decode"),
+)
+
+SHAPES_BY_NAME = {s.name: s for s in INPUT_SHAPES}
+
+
+# ----------------------------------------------------------------------
+# Federated-learning system config (the paper, Table I defaults)
+# ----------------------------------------------------------------------
 @dataclass(frozen=True)
 class FLConfig:
     """Auction-based clustered FL system parameters (paper Table I)."""

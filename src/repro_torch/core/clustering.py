@@ -10,8 +10,10 @@ column blocks first (the CNN-MNIST gradient has 21,840 entries).  K-means
 is k-means++ seeding plus Lloyd's algorithm over ``restarts`` runs that
 share one batch axis: every Lloyd iteration of all restarts is ONE call
 of the fused step ``repro_torch.kernels.ops.lloyd_step`` (the CUDA kernel
-on a GPU).  The seed implementation is kept as :func:`kmeans_reference`,
-the oracle.
+on a GPU).  An ``assign_fn`` hook replaces the assignment (for example
+with ``ops.kmeans_assign``, the assign-only CUDA kernel), as the JAX
+package's hook does.  The seed implementation is kept as
+:func:`kmeans_reference`, the oracle.
 """
 from __future__ import annotations
 
@@ -119,15 +121,44 @@ def _kmeanspp_init(features, k, key):
     return cent
 
 
+def _kmeans_hooked(features, cents, k, iters, assign_fn):
+    """Lloyd's algorithm with an external assignment, restart by restart
+    (``repro.core.clustering._kmeans_batched`` with ``assign_fn``): labels
+    from the hook, a one-hot update, inertia ``((x - cent[lab])^2).sum()``.
+    Each centroid's sum adds its rows with ``index_add_``, whose values do
+    not depend on the centroid's index, so restarts that reach one
+    partition under other cluster numbers tie exactly, as in the JAX
+    package."""
+    x32 = features.float()
+    best = None
+    for cent in cents:
+        for _ in range(iters):
+            lab = assign_fn(features, cent).long()
+            counts = torch.bincount(lab, minlength=k).float()[:, None]
+            sums = x32.new_zeros(k, x32.shape[1]).index_add_(0, lab, x32)
+            cent = torch.where(counts > 0, sums / torch.clamp(counts, min=1.0),
+                               cent).to(features.dtype)
+        lab = assign_fn(features, cent).long()
+        inertia = float(((x32 - cent[lab].float()) ** 2).sum())
+        if best is None or inertia < best[2]:   # first index on ties
+            best = (lab.int(), cent, inertia)
+    return best[0], best[1]
+
+
 def kmeans(features: torch.Tensor, k: int, key, iters: int = 25,
-           restarts: int = 4) -> Tuple[torch.Tensor, torch.Tensor]:
+           restarts: int = 4, assign_fn: Optional[Callable] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Lloyd's algorithm with k-means++ seeding and best-of-``restarts``
     (by inertia).  features: (N, F).  Returns (labels (N,) int32,
     centroids (k, F)).  Restart r seeds from ``fold_in(key, r)``; all
     restarts advance together, one fused ``lloyd_step`` call per
-    iteration plus one for the final assignment (``iters + 1`` calls)."""
+    iteration plus one for the final assignment (``iters + 1`` calls).
+    ``assign_fn(x, c) -> labels`` overrides the assignment: then each
+    restart calls it ``iters + 1`` times."""
     cents = torch.stack([_kmeanspp_init(features, k, rng.fold_in(key, r))
                          for r in range(restarts)])         # (R, K, F)
+    if assign_fn is not None:
+        return _kmeans_hooked(features, cents, k, iters, assign_fn)
     for _ in range(iters):
         _, _, sums, counts = KOPS.lloyd_step(features, cents)
         cnt = counts[..., None]
@@ -169,12 +200,14 @@ def kmeans_reference(features: torch.Tensor, k: int, key, iters: int = 25,
 
 def cluster_clients(grad_fn: Callable, params, client_data, cfg: FLConfig,
                     key, feature_kind: str = "gradient",
+                    assign_fn: Optional[Callable] = None,
                     precomputed_feats: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Cluster all clients.  client_data: list of (x, y) tensors per
     client.  ``feature_kind='gradient'`` is the paper's scheme; the
     weight-delta baseline is not ported yet (ROADMAP.md, queue 1).
-    ``precomputed_feats`` (N, D) bypasses the per-client feature loop.
+    ``precomputed_feats`` (N, D) bypasses the per-client feature loop;
+    ``assign_fn`` overrides k-means' assignment (see :func:`kmeans`).
     Returns (labels (N,), centroids, features)."""
     if feature_kind != "gradient":
         raise NotImplementedError(
@@ -193,5 +226,6 @@ def cluster_clients(grad_fn: Callable, params, client_data, cfg: FLConfig,
             feats = project_features_blocked(rng.PRNGKey(1234), feats,
                                              cfg.cluster_feature_dim)
     with obs.span("cluster/kmeans"):
-        labels, cent = kmeans(feats, cfg.num_clusters, key)
+        labels, cent = kmeans(feats, cfg.num_clusters, key,
+                              assign_fn=assign_fn)
     return labels, cent, feats

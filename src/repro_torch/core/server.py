@@ -82,12 +82,14 @@ class FederatedServer:
     def __init__(self, cfg: FLConfig, adapter: ModelAdapter,
                  x: np.ndarray, y: np.ndarray, clients,
                  test_batch: Dict[str, np.ndarray],
-                 seed: Optional[int] = None, device="cuda"):
+                 assign_fn=None, seed: Optional[int] = None,
+                 device="cuda"):
         self.device = resolve_device(device)
         check_supported(cfg)
         self.cfg = cfg
         self.adapter = adapter
         self.clients = clients
+        self.assign_fn = assign_fn
         self.key = rng.PRNGKey(cfg.seed if seed is None else seed)
         self.params = adapter.init(self._next_key())
         self.logs: List[RoundLog] = []
@@ -121,13 +123,17 @@ class FederatedServer:
         return k
 
     def cluster(self) -> None:
-        """Stage 1: cluster clients by their mean initial gradients."""
+        """Stage 1: cluster clients by their mean initial gradients.
+
+        K-means runs through the fused Lloyd step unless ``assign_fn``
+        (for example ``ops.kmeans_assign``'s labels) overrides the
+        assignment."""
         data = [self.runtime.local_data(i) for i in range(len(self.clients))]
         key = self._next_key()
         feats = self.runtime.cluster_features(self.params, key, "gradient")
         labels, _, _ = CL.cluster_clients(
             self.adapter.grad, self.params, data, self.cfg, key,
-            precomputed_feats=feats)
+            assign_fn=self.assign_fn, precomputed_feats=feats)
         self.state.clusters = labels.to(torch.int32)
 
     def local_train(self, client_idx: int, global_params):

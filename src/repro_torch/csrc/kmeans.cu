@@ -1,11 +1,19 @@
 // Fused Lloyd step (assign + update) for stage-1 k-means, batched over
-// restarts, for Hopper (sm_90a).
+// restarts, and its assign-only sibling, for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel repro/kernels/kmeans.py::lloyd_step
-// (body _lloyd_kernel).  Inputs: x (N, F) float32 or bfloat16, shared by
-// all restarts; c (R, K, F) float32.  Outputs: labels int32 (R, N), the
-// min distance float32 (R, N), sums float32 (R, K, F) = onehot^T x and
-// counts float32 (R, K).
+// lloyd_step replaces the Pallas TPU kernel repro/kernels/kmeans.py::
+// lloyd_step (body _lloyd_kernel).  Inputs: x (N, F) float32 or bfloat16,
+// shared by all restarts; c (R, K, F) float32.  Outputs: labels int32
+// (R, N), the min distance float32 (R, N), sums float32 (R, K, F) =
+// onehot^T x and counts float32 (R, K).
+//
+// kmeans_assign replaces repro/kernels/kmeans.py::kmeans_assign (body
+// _assign_kernel): labels int32 (N,) and min distances float32 (N,) of x
+// (N, F) against one c (K, F).  It is the assign phase of lloyd_partial
+// alone (UPDATE = false, R = 1): the same decomposition, the same first
+// index on ties, no update and no reduce.  Bound on an H100: reading x
+// (N*F bytes) against 2*N*K*F FMA-flops; at stage 1's K = 10 both are
+// small, so launch latency sets its time at the main path's N = 100.
 //
 // What bounds it on an H100: one pass costs 2*N*K*F*R FMA-flops and must
 // read x once (N*F*4 bytes).  At the fleet shape (N=100k, F=256, K=10,
@@ -99,7 +107,7 @@ __device__ __forceinline__ void load_centroids(const float* c, float* cs,
     cs[(j * (TN / FC) + threadIdx.x / FC) * FC + ff] = v[j];
 }
 
-template <bool BF16>
+template <bool BF16, bool UPDATE>
 __global__ void __launch_bounds__(TN)
 lloyd_partial(const void* __restrict__ x, const float* __restrict__ c,
               int N, int F, int K, int R, int* __restrict__ labels,
@@ -194,64 +202,69 @@ lloyd_partial(const void* __restrict__ x, const float* __restrict__ c,
       }
     }
     __syncthreads();
-    // counts: thread i < RK owns (restart, centroid) pair i
+    if constexpr (UPDATE) {    // kmeans_assign stops at labels and dist
+      // counts: thread i < RK owns (restart, centroid) pair i
+#pragma unroll
+      for (int j = 0; j < CNT; ++j) {
+        const int i = tid + j * TN;
+        if (i < RK) {
+          const int* lr = labs + (i / K) * TN;
+          const int k = i % K;
+          for (int rr = 0; rr < TN; ++rr)
+            cnt[j] += (lr[rr] == k) ? 1.f : 0.f;
+        }
+      }
+      __syncthreads();    // labs and best_d are reset by the next tile
+    }
+  }
+  if constexpr (UPDATE) {    // kmeans_assign has no update
 #pragma unroll
     for (int j = 0; j < CNT; ++j) {
       const int i = tid + j * TN;
-      if (i < RK) {
-        const int* lr = labs + (i / K) * TN;
-        const int k = i % K;
-        for (int rr = 0; rr < TN; ++rr) cnt[j] += (lr[rr] == k) ? 1.f : 0.f;
-      }
+      if (i < RK) pcounts[(size_t)blockIdx.x * RK + i] = cnt[j];
     }
-    __syncthreads();      // labs and best_d are reset by the next tile
-  }
-#pragma unroll
-  for (int j = 0; j < CNT; ++j) {
-    const int i = tid + j * TN;
-    if (i < RK) pcounts[(size_t)blockIdx.x * RK + i] = cnt[j];
-  }
 
-  // ---- update: this block's partial sums, one F-chunk at a time ----
-  // The labels come back from global memory (this block wrote them above;
-  // __syncthreads makes a block's global writes visible to the block).
-  // sacc (R, K, FC) accumulates over all the block's tiles, rows in order,
-  // then is stored once: no read-modify-write of global memory.
-  float* ps = psums + (size_t)blockIdx.x * RK * F;
-  const int col = tid % FC;
-  for (int f0 = 0; f0 < F; f0 += FC) {
-    __syncthreads();
-    for (int i = tid; i < RK * FC; i += TN) sacc[i] = 0.f;
-    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-      const int row0 = tile * TN, row = row0 + tid;
+    // ---- update: this block's partial sums, one F-chunk at a time ----
+    // The labels come back from global memory (this block wrote them above;
+    // __syncthreads makes a block's global writes visible to the block).
+    // sacc (R, K, FC) accumulates over all the block's tiles, rows in order,
+    // then is stored once: no read-modify-write of global memory.
+    float* ps = psums + (size_t)blockIdx.x * RK * F;
+    const int col = tid % FC;
+    for (int f0 = 0; f0 < F; f0 += FC) {
       __syncthreads();
-      load_tile<BF16>(x, xs, row0, f0, N, F);
-      for (int r = 0; r < R; ++r)
-        labs[r * TN + tid] = row < N ? labels[(size_t)r * N + row] : -1;
-      __syncthreads();
-      // thread (restart r, column col) adds each row into its centroid's
-      // slot; eight rows' labels and values are read ahead of their adds
-      for (int r = tid / FC; r < R; r += TN / FC) {
-        const int* lr = labs + r * TN;
-        float* sr = sacc + r * K * FC + col;
-        for (int rr0 = 0; rr0 < TN; rr0 += 8) {
-          int kk[8];
-          float vv[8];
+      for (int i = tid; i < RK * FC; i += TN) sacc[i] = 0.f;
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        const int row0 = tile * TN, row = row0 + tid;
+        __syncthreads();
+        load_tile<BF16>(x, xs, row0, f0, N, F);
+        for (int r = 0; r < R; ++r)
+          labs[r * TN + tid] = row < N ? labels[(size_t)r * N + row] : -1;
+        __syncthreads();
+        // thread (restart r, column col) adds each row into its centroid's
+        // slot; eight rows' labels and values are read ahead of their adds
+        for (int r = tid / FC; r < R; r += TN / FC) {
+          const int* lr = labs + r * TN;
+          float* sr = sacc + r * K * FC + col;
+          for (int rr0 = 0; rr0 < TN; rr0 += 8) {
+            int kk[8];
+            float vv[8];
 #pragma unroll
-          for (int u = 0; u < 8; ++u) {
-            kk[u] = lr[rr0 + u];
-            vv[u] = xs[(rr0 + u) * XS + col];
+            for (int u = 0; u < 8; ++u) {
+              kk[u] = lr[rr0 + u];
+              vv[u] = xs[(rr0 + u) * XS + col];
+            }
+#pragma unroll
+            for (int u = 0; u < 8; ++u)
+              if (kk[u] >= 0) sr[kk[u] * FC] += vv[u];
           }
-#pragma unroll
-          for (int u = 0; u < 8; ++u)
-            if (kk[u] >= 0) sr[kk[u] * FC] += vv[u];
         }
       }
-    }
-    __syncthreads();
-    for (int i = tid; i < RK * FC; i += TN) {
-      const int gf = f0 + i % FC;
-      if (gf < F) ps[(size_t)(i / FC) * F + gf] = sacc[i];
+      __syncthreads();
+      for (int i = tid; i < RK * FC; i += TN) {
+        const int gf = f0 + i % FC;
+        if (gf < F) ps[(size_t)(i / FC) * F + gf] = sacc[i];
+      }
     }
   }
 }
@@ -286,18 +299,25 @@ lloyd_reduce(const float* __restrict__ psums,
   }
 }
 
-template <bool BF16>
+template <bool BF16, bool UPDATE>
 cudaError_t launch_partial(const void* x, const float* c, int N, int F, int K,
                            int R, int blocks, size_t smem, int* labels,
                            float* dist, float* psums, float* pcounts,
                            cudaStream_t stream) {
-  auto kern = lloyd_partial<BF16>;
+  auto kern = lloyd_partial<BF16, UPDATE>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kern<<<blocks, TN, smem, stream>>>(x, c, N, F, K, R, labels, dist, psums,
                                      pcounts);
   return cudaGetLastError();
+}
+
+size_t partial_smem(int K, int R) {
+  const int RK = R * K;
+  return sizeof(float) * ((size_t)TN * XS + (size_t)(G > RK ? G : RK) * FC +
+                          RK + (size_t)R * TN) +
+         sizeof(int) * (size_t)R * TN;
 }
 
 }  // namespace
@@ -320,21 +340,36 @@ int lloyd_step(const void* x, int x_is_bf16, const float* c, int N, int F,
       blocks <= 0 || blocks > (N + TN - 1) / TN)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int RK = R * K;
-  const size_t smem =
-      sizeof(float) * ((size_t)TN * XS + (size_t)(G > RK ? G : RK) * FC + RK +
-                       (size_t)R * TN) +
-      sizeof(int) * (size_t)R * TN;
+  const size_t smem = partial_smem(K, R);
   cudaError_t err =
-      x_is_bf16 ? launch_partial<true>(x, c, N, F, K, R, blocks, smem, labels,
+      x_is_bf16
+          ? launch_partial<true, true>(x, c, N, F, K, R, blocks, smem, labels,
                                        dist, psums, pcounts, s)
-                : launch_partial<false>(x, c, N, F, K, R, blocks, smem,
+          : launch_partial<false, true>(x, c, N, F, K, R, blocks, smem,
                                         labels, dist, psums, pcounts, s);
   if (err != cudaSuccess) return (int)err;
-  const int RKF = RK * F;
+  const int RK = R * K, RKF = RK * F;
   lloyd_reduce<<<(RKF + RK + 31) / 32, 32 * RED_WARPS, 0, s>>>(
       psums, pcounts, blocks, RKF, RK, sums, counts);
   return (int)cudaGetLastError();
+}
+
+// labels int32 (N,) and dist float32 (N,) of x (N, F) against c (K, F);
+// blocks <= ceil(N / TN).
+int kmeans_assign(const void* x, int x_is_bf16, const float* c, int N, int F,
+                  int K, int blocks, int* labels, float* dist, void* stream) {
+  if (N <= 0 || F <= 0 || K <= 0 || K > MAXK || blocks <= 0 ||
+      blocks > (N + TN - 1) / TN)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = partial_smem(K, 1);
+  cudaError_t err =
+      x_is_bf16 ? launch_partial<true, false>(x, c, N, F, K, 1, blocks, smem,
+                                              labels, dist, nullptr, nullptr, s)
+                : launch_partial<false, false>(x, c, N, F, K, 1, blocks, smem,
+                                               labels, dist, nullptr, nullptr,
+                                               s);
+  return (int)err;
 }
 
 }  // extern "C"

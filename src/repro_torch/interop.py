@@ -1,16 +1,20 @@
 """Moving parameters and selection state between the JAX package and the
 port through numpy.  Names, layouts and dtypes are the JAX package's: a
 CNN parameter dict keeps ``c1_w`` (HWIO), ``f1_w`` (in, out), ... and
-every float is float32 (JAX runs with x64 off)."""
+every float is float32 (JAX runs with x64 off).  A transformer's tree
+keeps its nesting: ``tok_embed``, ``blocks`` (a tuple with one dict per
+cycle position, each leaf with a leading group axis), ``final_norm`` and
+an optional ``lm_head``, in the config's dtype."""
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
 from repro_torch.core.selection import SelectionState
 from repro_torch.device import resolve_device
+from repro_torch.models.layers import torch_dtype
 
 
 def params_from_numpy(tree: Mapping[str, np.ndarray],
@@ -41,3 +45,32 @@ def selection_state_from_numpy(clusters, residual, history, local_sizes,
                           residual=as_t(residual, torch.float32),
                           history=as_t(history, torch.int32),
                           local_sizes=as_t(local_sizes, torch.int32))
+
+
+def model_params_from_numpy(tree: Any, cfg, device="cuda") -> Any:
+    """A JAX transformer parameter tree (numpy leaves) -> the port's tree,
+    name for name, in ``cfg.dtype``.  A JAX bfloat16 array reaches numpy
+    as ``ml_dtypes.bfloat16``; it goes through float32, which holds every
+    bfloat16 value exactly."""
+    device = resolve_device(device)
+    dt = torch_dtype(cfg.dtype)
+
+    def conv(node):
+        if isinstance(node, Mapping):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            return tuple(conv(v) for v in node)
+        return torch.tensor(np.asarray(node, np.float32),
+                            device=device).to(dt)
+
+    return conv(tree)
+
+
+def model_params_to_numpy(tree: Any) -> Any:
+    """The port's transformer parameter tree -> numpy float32 leaves, with
+    the same nesting (tuples stay tuples)."""
+    if isinstance(tree, Mapping):
+        return {k: model_params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(model_params_to_numpy(v) for v in tree)
+    return tree.detach().float().cpu().numpy()

@@ -1,19 +1,28 @@
-"""Public wrapper for the fused Lloyd kernel with device dispatch.
+"""Public wrappers for the hand-written kernels, with device dispatch.
 
-``lloyd_step`` launches the hand-written CUDA kernel
-(``repro_torch/csrc/kmeans.cu``, replacing the Pallas TPU kernel
-``repro/kernels/kmeans.py::lloyd_step``) for CUDA tensors and raises if
-the build or the launch fails; it takes the plain version,
-:func:`_lloyd_step_torch`, only because the tensors lie on the CPU.
-``lloyd_step.launches`` counts kernel launches (one per call), so a run
-can show that its k-means went through the kernel.
+Each wrapper launches its CUDA kernel for CUDA tensors and raises if the
+build or the launch fails; it takes its plain version only because the
+tensors lie on the CPU:
+
+* ``lloyd_step`` -> ``csrc/kmeans.cu`` (replaces the Pallas TPU kernel
+  ``repro/kernels/kmeans.py::lloyd_step``), plain :func:`_lloyd_step_torch`;
+* ``kmeans_assign`` -> ``csrc/kmeans.cu`` (replaces
+  ``repro/kernels/kmeans.py::kmeans_assign``), plain
+  :func:`_kmeans_assign_torch`;
+* ``flash_attention`` -> ``csrc/flash_attention.cu`` (replaces
+  ``repro/kernels/flash_attention.py::flash_attention``), plain
+  :func:`_flash_attention_torch`.
+
+``<wrapper>.launches`` counts kernel launches (one per call on the card),
+so a run can show that its path went through the kernel.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ref as REF
-from repro_torch.kernels.kmeans import lloyd_step_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.kmeans import kmeans_assign_cuda, lloyd_step_cuda
 
 
 def distances(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -57,3 +66,51 @@ def lloyd_step(x: torch.Tensor, c: torch.Tensor):
 
 
 lloyd_step.launches = 0
+
+
+def _kmeans_assign_torch(x: torch.Tensor, c: torch.Tensor):
+    """The plain version: labels (first index on ties) and min distances
+    by the kernel's decomposition (:func:`distances`)."""
+    d = distances(x, c.float()[None])[0]                   # (N, K)
+    lab = d.argmin(dim=1)
+    return lab.int(), torch.gather(d, 1, lab[:, None])[:, 0]
+
+
+def kmeans_assign(x: torch.Tensor, c: torch.Tensor):
+    """Assignment only: x (N, F) float32 or bfloat16, c (K, F) ->
+    (labels int32 (N,), min_dist float32 (N,))."""
+    if x.device != c.device:
+        raise ValueError(f"x on {x.device} and c on {c.device}")
+    if x.device.type == "cpu":
+        return _kmeans_assign_torch(x, c)
+    out = kmeans_assign_cuda(x.contiguous(), c.float().contiguous())
+    kmeans_assign.launches += 1
+    return out
+
+
+kmeans_assign.launches = 0
+
+
+def _flash_attention_torch(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *, causal: bool = True,
+                           window: int = 0) -> torch.Tensor:
+    """The plain version: the naive fp32 softmax of
+    ``ref.flash_attention_ref``."""
+    return REF.flash_attention_ref(q, k, v, causal=causal, window=window)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Forward attention: q (B, Sq, H, hd), k, v (B, Sk, H, hd) with K/V
+    already expanded to H heads -> (B, Sq, H, hd) in q's type."""
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
+    if q.device.type == "cpu":
+        return _flash_attention_torch(q, k, v, causal=causal, window=window)
+    out = flash_attention_cuda(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=causal, window=window)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

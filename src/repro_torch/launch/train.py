@@ -48,7 +48,7 @@ def set_float32_precision() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def run_paper(args, device: torch.device) -> dict:
+def run_paper(args, device: torch.device, assign_fn=None) -> dict:
     cfg = FLConfig(
         num_clients=args.clients, num_clusters=args.clusters,
         select_ratio=args.select_ratio, rounds=args.rounds,
@@ -65,7 +65,7 @@ def run_paper(args, device: torch.device) -> dict:
     ntest = min(1000, len(test.x))
     srv = FederatedServer(cfg, adapter, train.x, train.y, clients,
                           {"x": test.x[:ntest], "y": test.y[:ntest]},
-                          device=device)
+                          assign_fn=assign_fn, device=device)
     t0 = time.time()
     logs = srv.run(verbose=not args.quiet)
     return {
@@ -156,7 +156,10 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv: Optional[List[str]] = None) -> dict:
+def main(argv: Optional[List[str]] = None, *, assign_fn=None) -> dict:
+    """Run the CLI on ``argv``.  ``assign_fn`` (a caller's hook, no flag)
+    overrides stage 1's k-means assignment, as ``FederatedServer``'s
+    ``assign_fn`` does."""
     ap = build_parser()
     args = ap.parse_args(argv)
     if args.mode != "paper":
@@ -170,7 +173,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     set_float32_precision()
     device = resolve_device(args.device)
     obs.configure(quiet=args.quiet)
-    result = run_paper(args, device)
+    result = run_paper(args, device, assign_fn)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

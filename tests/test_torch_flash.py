@@ -1,0 +1,71 @@
+"""The flash-attention kernel's plain version against the JAX package's
+Pallas kernel (interpret mode, as tests/test_kernels.py runs it) and its
+oracle, over the JAX tests' sweep.  The CUDA kernel itself runs only on
+a GPU (see tests/test_torch_gpu.py and chip_smoke.py)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as JREF
+from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro_torch.kernels import flash_attention as TFA
+from repro_torch.kernels import ops as TOPS
+from repro_torch.kernels import ref as TREF
+
+# one intra-op thread: pytest-xdist runs several workers on the same
+# cores, where torch's spinning OpenMP pools slow every test many-fold
+torch.set_num_threads(1)
+
+# fp32: sum order of fp32 products; bf16: one bf16 rounding of outputs
+# of magnitude up to a few units
+TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+
+
+def _qkv(b, s, h, hd, seed):
+    g = np.random.default_rng(seed)
+    return [g.standard_normal((b, s, h, hd)).astype(np.float32)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("dtype", sorted(TOL))
+@pytest.mark.parametrize("b,s,h,hd", [
+    (1, 64, 1, 16), (2, 128, 4, 64), (1, 200, 2, 32), (2, 96, 3, 8),
+])
+@pytest.mark.parametrize("causal,window", [
+    (True, 0), (False, 0), (True, 32),
+])
+def test_plain_flash_attention_matches_pallas(b, s, h, hd, causal, window,
+                                              dtype):
+    q, k, v = _qkv(b, s, h, hd, s * h + hd)
+    jq, jk, jv = (jnp.asarray(a, dtype) for a in (q, k, v))
+    want = np.asarray(pallas_flash(jq, jk, jv, causal=causal, window=window,
+                                   block_q=64, block_k=64, interpret=True),
+                      np.float32)
+    tdt = getattr(torch, dtype)
+    tq, tk, tv = (torch.tensor(a).to(tdt) for a in (q, k, v))
+    got = TOPS._flash_attention_torch(tq, tk, tv, causal=causal,
+                                      window=window)
+    assert got.dtype == tdt and got.shape == (b, s, h, hd)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+    np.testing.assert_allclose(
+        TREF.flash_attention_ref(tq, tk, tv, causal=causal,
+                                 window=window).float().numpy(),
+        np.asarray(JREF.flash_attention_ref(jq, jk, jv, causal=causal,
+                                            window=window), np.float32),
+        rtol=tol, atol=tol)
+
+
+def test_ops_dispatch_on_cpu_uses_plain_version_and_never_launches():
+    q, k, v = (torch.tensor(a) for a in _qkv(1, 80, 2, 16, 0))
+    got = TOPS.flash_attention(q, k, v, causal=True, window=16)
+    want = TOPS._flash_attention_torch(q, k, v, causal=True, window=16)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert TOPS.flash_attention.launches == 0
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    q = torch.zeros(1, 8, 1, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        TFA.flash_attention_cuda(q, q, q, causal=True, window=0)

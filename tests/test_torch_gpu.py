@@ -1,9 +1,11 @@
-"""The CUDA lloyd_step kernel against its plain version on the card.
+"""The CUDA kernels (lloyd_step, kmeans_assign, flash_attention) against
+their plain versions on the card.
 
 Marked ``gpu``: it needs a CUDA device and nvcc, and skips elsewhere
 (the decision is made inside the fixture, never at import).  Run it on a
 GPU machine with ``python -m pytest -q -m gpu tests/test_torch_gpu.py``;
-``python3 chip_smoke.py`` makes the same comparison at the fleet shape.
+``python3 chip_smoke.py`` makes the same comparisons at the main paths'
+shapes.
 """
 import numpy as np
 import pytest
@@ -60,3 +62,73 @@ def test_kernel_matches_plain_version(cuda, n, f, k, r, dtype):
     again = TOPS.lloyd_step(x, c)
     for a, b in zip((lab, dist, sums, counts), again):
         assert torch.equal(a.cpu(), b.cpu())
+
+
+def _near_tie_ok(x, c, lab, lab_p):
+    """Labels equal off near-ties; everywhere nearest by exact distance."""
+    d = ((x.double().cpu()[:, None] - c.double().cpu()[None]) ** 2).sum(-1)
+    best2 = d.topk(2, dim=1, largest=False).values
+    clear = (best2[:, 1] - best2[:, 0]) > 1e-4 * best2[:, 0].abs()
+    lab = lab.cpu()
+    assert (lab[clear] == lab_p.cpu()[clear]).all()
+    picked = d.gather(1, lab.long()[:, None])[:, 0]
+    assert torch.allclose(picked, best2[:, 0], rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("n,f,k", [(16, 8, 2), (100, 64, 10), (257, 256, 7),
+                                   (512, 100, 16), (33, 33, 3),
+                                   (70_000, 64, 10), (300, 40, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_assign_kernel_matches_plain_version(cuda, n, f, k, dtype):
+    g = torch.Generator(device="cpu").manual_seed(n * f + k)
+    x = torch.randn(n, f, generator=g).to(cuda, dtype)
+    c = torch.randn(k, f, generator=g).to(cuda)
+    before = TOPS.kmeans_assign.launches
+    lab, dist = TOPS.kmeans_assign(x, c)
+    torch.cuda.synchronize()
+    assert TOPS.kmeans_assign.launches == before + 1
+    assert lab.dtype == torch.int32 and dist.dtype == torch.float32
+    lab_p, dist_p = TOPS._kmeans_assign_torch(x, c)
+    _near_tie_ok(x, c, lab, lab_p)
+    np.testing.assert_allclose(dist.cpu().numpy(), dist_p.cpu().numpy(),
+                               rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hd,dtype,causal,window", [
+    (1, 64, 64, 1, 16, torch.float32, True, 0),
+    (2, 128, 128, 4, 64, torch.float32, False, 0),
+    (1, 200, 200, 2, 32, torch.float32, True, 32),
+    (2, 96, 96, 3, 8, torch.float32, True, 0),
+    (2, 1100, 1100, 3, 96, torch.float32, False, 0),
+    (1, 130, 130, 2, 256, torch.float32, True, 0),
+    (1, 70, 150, 2, 40, torch.float32, False, 0),
+    (1, 150, 70, 2, 16, torch.float32, True, 0),
+    (1, 200, 200, 2, 32, torch.float32, False, 48),
+    (1, 300, 300, 2, 128, torch.bfloat16, True, 100),
+    (1, 1031, 1031, 14, 64, torch.bfloat16, True, 0)])
+def test_flash_kernel_matches_plain_version(cuda, b, sq, sk, h, hd, dtype,
+                                            causal, window):
+    """fp32 at 1e-4 absolute (sum order of fp32 products); bf16 at 1e-4
+    plus 2^-7 of each value (the two fp32 results round to at most one
+    bf16 unit apart, and a unit is at most 2^-7 of the value)."""
+    g = torch.Generator(device="cpu").manual_seed(sq * h + hd)
+    q = torch.randn(b, sq, h, hd, generator=g).to(cuda, dtype)
+    k, v = (torch.randn(b, sk, h, hd, generator=g).to(cuda, dtype)
+            for _ in range(2))
+    before = TOPS.flash_attention.launches
+    out = TOPS.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert TOPS.flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    want = TOPS._flash_attention_torch(q, k, v, causal=causal, window=window)
+    rtol = 0.0 if dtype == torch.float32 else 2.0 ** -7
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=rtol,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("hd", [28, 264])
+def test_flash_kernel_refuses_head_dims_it_does_not_take(cuda, hd):
+    q = torch.zeros(1, 8, 1, hd, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        TOPS.flash_attention(q, q, q, causal=True, window=0)
