@@ -6,14 +6,22 @@
 1. Prints the card's name and power limit (nvidia-smi) and switches TF32
    off for matmuls and cuDNN.
 2. Builds the port's two CUDA sources from the checkout (one nvcc each,
-   started together) and prints the build seconds and the ptxas report.
+   started together) and prints the build seconds, the ptxas report
+   (registers and spills per kernel) and, by cuobjdump, the
+   HMMA (tensor-core) instructions of each flash-attention kernel; each
+   bf16 instantiation must have some.  cuobjdump and cu++filt are taken
+   from the directory of the nvcc that built the kernels.
 3. Kernel phases: holds each kernel's wrapper (``ops.lloyd_step``,
    ``ops.kmeans_assign``, ``ops.flash_attention``, the calls the paths
    make) against its plain PyTorch version on the card, at the paths'
    shapes and at the other shapes listed in KERNEL_SHAPES and
    FLASH_SHAPES, and times both (median of 20 runs, CUDA events), and
    flash attention also against ``scaled_dot_product_attention`` (the
-   library yardstick; the port never calls it).
+   library yardstick; the port never calls it), with its achieved
+   TFLOP/s (the useful operations over its time), SDPA's share of the
+   same error bound and, for bf16, the share of the plain version with p
+   rounded once to bf16 before P.V (a single bf16 P, which the kernel
+   avoids by carrying p as two bf16 terms).
 4. Paper path: sets every launch count to 0, runs the port's
    ``--mode paper`` with the reference defaults (100 clients, 10
    clusters, 12,000-image pool, the CNN-MNIST, seed 0) for 3 rounds on
@@ -40,14 +48,15 @@ status line.  ``--profile`` adds a torch.profiler pass before them:
 device time by kernel for the fleet-shape Lloyd step, for one more
 paper-path run, for a warm prefill and for 32 decode steps, and each
 run's device-busy share of its wall time (it adds minutes, so the plain
-smoke run leaves it out).  Without a CUDA
-device, or run outside a checkout, it exits non-zero and prints no
-result.  Any failed check raises.
+smoke run leaves it out).  Without a CUDA device, or run outside a
+checkout, it exits non-zero and prints no result.  Any failed check
+raises.
 """
 from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -85,10 +94,13 @@ REFERENCE_WINNERS = [[1, 35, 40], [12, 35, 36, 41, 49, 58, 60, 63],
 # (label, B, S, H, hd, dtype, causal, window); "qwen2" is the shape
 # qwen2-0.5b's prefill of 4,096 tokens gives the kernel (14 heads after
 # the GQA expansion), "window" starcoder2-3b's sliding window at 8,192
-# tokens, "ragged" a length off the 64-key tiles with head_dim 96
+# tokens, "phi3v" phi-3-vision's head_dim 96 (32 heads) at 4,096 tokens,
+# "ragged" a length off the 64-key tiles with head_dim 96 in fp32 (the
+# CUDA-core instantiation)
 FLASH_SHAPES = (
     ("qwen2", 1, 4096, 14, 64, torch.bfloat16, True, 0),
     ("window", 1, 8192, 24, 128, torch.bfloat16, True, 4096),
+    ("phi3v", 1, 4096, 32, 96, torch.bfloat16, True, 0),
     ("ragged", 2, 1100, 3, 96, torch.float32, False, 0),
 )
 # per-element bound against the plain version, |out - want| <= atol +
@@ -256,17 +268,40 @@ def flash_pairs(sq, sk, causal, window):
     return int(torch.clamp(hi - lo, min=0).sum())
 
 
+def flash_ops(b, s, h, hd, causal, window):
+    """The useful work: 4*hd flops per unmasked (query, key) pair per head
+    (two products)."""
+    return 4 * hd * b * h * flash_pairs(s, s, causal, window)
+
+
 def flash_bound(b, s, h, hd, dtype, causal, window):
     """Least time: q, k, v read once and o written once, against
     4*hd flops per unmasked (query, key) pair per head (two products),
     on the bf16 tensor cores for bf16 and the fp32 CUDA cores for fp32."""
     esize = torch.tensor([], dtype=dtype).element_size()
     moved = 4 * b * s * h * hd * esize
-    ops = 4 * hd * b * h * flash_pairs(s, s, causal, window)
+    ops = flash_ops(b, s, h, hd, causal, window)
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
     t_bytes, t_ops = moved / PEAK_HBM_BYTES, ops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def single_bf16_p(q, k, v, causal, window):
+    """The plain version with p rounded once to bf16 before P.V (l summed
+    from the fp32 p), in q's type: what a kernel with a single bf16 P
+    computes, up to the order of its sums."""
+    from repro_torch.kernels import ref as REF
+    sq, sk, hd = q.shape[1], k.shape[1], q.shape[3]
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / hd ** 0.5
+    mask = REF.attention_mask(torch.arange(sq, device=q.device),
+                              torch.arange(sk, device=q.device),
+                              causal=causal, window=window)
+    sc = sc.masked_fill(~mask, -1e30)
+    p = torch.exp(sc - sc.amax(-1, keepdim=True))
+    l = p.sum(-1).transpose(1, 2)[..., None]
+    p = p.bfloat16().float()
+    return (torch.einsum("bhqk,bkhd->bqhd", p, v.float()) / l).to(q.dtype)
 
 
 def check_flash(OPS, dev, label, b, s, h, hd, dtype, causal, window, seed):
@@ -301,21 +336,32 @@ def check_flash(OPS, dev, label, b, s, h, hd, dtype, causal, window, seed):
         lib = lambda: sdpa(qt, kt, vt, attn_mask=mask)
     else:
         lib = lambda: sdpa(qt, kt, vt, is_causal=causal)
-    lib_err = float((lib().transpose(1, 2).float() - want.float()).abs()
-                    .max())
+    # SDPA rounds p to bf16 once before P.V: its share of the same bound
+    lib_diff = (lib().transpose(1, 2).float() - want.float()).abs()
+    lib_err = float(lib_diff.max())
+    lib_share = float((lib_diff / (atol + rtol * want.float().abs())).max())
+    single = ""
+    if dtype == torch.bfloat16:
+        one_p = (single_bf16_p(q, k, v, causal, window).float()
+                 - want.float()).abs()
+        one_p_share = float((one_p / (atol + rtol * want.float().abs()))
+                            .max())
+        single = f" single_bf16_p_share_of_bound={one_p_share!r}"
+        del one_p
     ms = median_ms(lambda: OPS.flash_attention(q, k, v, causal=causal,
                                                window=window))
     plain_ms = median_ms(lambda: OPS._flash_attention_torch(
         q, k, v, causal=causal, window=window))
     library_ms = median_ms(lib)
     bound_ms, bound_by = flash_bound(b, s, h, hd, dtype, causal, window)
+    tflop_s = flash_ops(b, s, h, hd, causal, window) / (ms * 1e-3) / 1e12
     print(f"flash_attention[{label}] B={b} S={s} H={h} hd={hd} "
           f"{str(dtype).removeprefix('torch.')} causal={causal} "
           f"window={window}: ms={ms!r} plain_ms={plain_ms!r} "
           f"library_ms={library_ms!r} bound_ms={bound_ms!r} ({bound_by}) "
-          f"max_abs_err={err!r} share_of_bound={share!r} "
-          f"library_max_abs_err={lib_err!r}",
-          flush=True)
+          f"tflop_s={tflop_s!r} max_abs_err={err!r} share_of_bound={share!r} "
+          f"library_max_abs_err={lib_err!r} "
+          f"library_share_of_bound={lib_share!r}{single}", flush=True)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
 
@@ -508,6 +554,67 @@ def profile_pass(OPS, TRAIN) -> None:
               f"device_ms={e.self_device_time_total / 1e3!r}", flush=True)
 
 
+def toolkit(BUILD, name: str) -> str:
+    """A program of the CUDA toolkit whose nvcc builds the kernels."""
+    tool = Path(BUILD._nvcc()).parent / name
+    require(tool.exists(), f"{name} not found beside nvcc ({tool})")
+    return str(tool)
+
+
+def demangle(BUILD, names):
+    """{mangled: demangled without parameter types} by cu++filt."""
+    names = sorted(set(names))
+    out = subprocess.run([toolkit(BUILD, "cu++filt"), "-p"],
+                         input="\n".join(names) + "\n", capture_output=True,
+                         text=True, timeout=60)
+    require(out.returncode == 0, f"cu++filt failed: {out.stderr}")
+    plain = out.stdout.splitlines()
+    require(len(plain) == len(names), "cu++filt gave back another count")
+    return dict(zip(names, plain))
+
+
+def ptxas_summary(BUILD, log: str):
+    """'kernel: R registers, spill S/L B' for each kernel of a -Xptxas -v
+    report."""
+    found = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            found.append(m.group(1))
+    names = demangle(BUILD, found)
+    rows, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = names[m.group(1)], ""
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spill = f"spill {m.group(1)}/{m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append(f"{name}: {m.group(1)} registers, {spill}")
+            name = None
+    return rows
+
+
+def sass_mma_counts(BUILD, lib_path):
+    """{mangled kernel name: number of HMMA (tensor-core) instructions} in
+    a built library's SASS, by cuobjdump."""
+    out = subprocess.run([toolkit(BUILD, "cuobjdump"), "-sass",
+                          str(lib_path)], capture_output=True, text=True,
+                         timeout=300)
+    require(out.returncode == 0, f"cuobjdump failed: {out.stderr}")
+    counts, fn = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
 def phase(name: str, t0: float) -> None:
     print(f"[{time.perf_counter() - t0:.1f} s] {name}", flush=True)
 
@@ -541,15 +648,22 @@ def main() -> int:
           f"{time.perf_counter() - t:.1f} s (each: "
           f"{', '.join(f'{lib.build_s:.1f} s' for lib in libs)})",
           flush=True)
-    for lib in libs:         # ptxas's registers, spills and smem per kernel
-        print("\n".join(line for line in lib.log.splitlines()
-                        if any(w in line for w in ("Compiling entry",
-                                                   "registers", "spill"))),
-              flush=True)
+    for lib in libs:         # ptxas's registers and spills per kernel
+        print(f"ptxas {lib.source.name}: "
+              + "; ".join(ptxas_summary(BUILD, lib.log)), flush=True)
+    hmma = sass_mma_counts(BUILD, FA.LIBRARY.path())
+    names = demangle(BUILD, hmma)
+    print("HMMA instructions in the SASS of flash_attention.cu: "
+          + "; ".join(f"{names[fn]}={n}" for fn, n in sorted(hmma.items())),
+          flush=True)
+    mma_fns = [fn for fn in hmma if "flash_fwd_mma" in fn]
+    require(bool(mma_fns) and all(hmma[fn] > 0 for fn in mma_fns),
+            f"the bf16 instantiations do not all run HMMA: {hmma}")
+
+    cuda = torch.device("cuda")
 
     # ---- kernel phases -------------------------------------------------
     phase("kernel phase: lloyd_step", t0)
-    cuda = torch.device("cuda")
     shapes = {label: check_lloyd(OPS, cuda, label, n, f, k, r, dt, seed)
               for label, n, f, k, r, dt, seed in KERNEL_SHAPES}
     phase("kernel phase: kmeans_assign", t0)

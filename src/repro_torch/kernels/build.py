@@ -42,8 +42,10 @@ def _nvcc() -> str:
 class CudaLibrary:
     """One ``csrc/<name>.cu`` source, its build and its loaded library.
 
-    ``log`` keeps nvcc's ``-Xptxas -v`` report of the last build and
-    ``build_s`` its seconds (0.0 when an up-to-date library was found)."""
+    ``log`` keeps nvcc's ``-Xptxas -v`` report of the library's build
+    (kept beside it, so a library found built has its report too) and
+    ``build_s`` the build's seconds (0.0 when an up-to-date library was
+    found)."""
 
     def __init__(self, source: str, signatures: Signatures):
         self.source = CSRC / source
@@ -74,7 +76,10 @@ class CudaLibrary:
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {self.source}:\n"
                                    f"{self.log}")
+            self.path().with_suffix(".log").write_text(self.log)
             os.replace(tmp, self.path())
+        elif self.path().with_suffix(".log").exists():
+            self.log = self.path().with_suffix(".log").read_text()
         lib = ctypes.CDLL(str(self.path()))
         for fn, (argtypes, restype) in self.signatures.items():
             getattr(lib, fn).argtypes = list(argtypes)

@@ -26,10 +26,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the kernel on ``torch.cuda.current_stream()``.
 
     q: (B, Sq, H, hd), k and v: (B, Sk, H, hd) (K/V already expanded to H
-    heads), all float32 or all bfloat16, contiguous, on one CUDA device;
-    hd a multiple of 8 up to 256.  Returns o (B, Sq, H, hd) in q's type.
-    Raises on anything the kernel does not take and when the launch
-    fails."""
+    heads), all float32 or all bfloat16, contiguous and 16-byte aligned, on
+    one CUDA device; hd a multiple of 8 up to 256.  Returns o (B, Sq, H,
+    hd) in q's type.  Raises on anything the kernel does not take and when
+    the launch fails."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention_cuda takes q, k and v on one CUDA "
                          "device")
@@ -53,6 +53,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"Sk={sk}, H={h}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must start on a 16-byte boundary (the "
+                         "kernel copies 16-byte chunks)")
     lib = LIBRARY.load()
     o = torch.empty_like(q)
     with torch.cuda.device(q.device):

@@ -99,6 +99,13 @@ def _flash_attention_torch(q: torch.Tensor, k: torch.Tensor,
     return REF.flash_attention_ref(q, k, v, causal=causal, window=window)
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous and starting on a 16-byte boundary (a view into a
+    larger tensor may start anywhere), copied only where it must be."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """Forward attention: q (B, Sq, H, hd), k, v (B, Sk, H, hd) with K/V
@@ -107,8 +114,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
     if q.device.type == "cpu":
         return _flash_attention_torch(q, k, v, causal=causal, window=window)
-    out = flash_attention_cuda(q.contiguous(), k.contiguous(),
-                               v.contiguous(), causal=causal, window=window)
+    q, k, v = (_aligned(t) for t in (q, k, v))
+    out = flash_attention_cuda(q, k, v, causal=causal, window=window)
     flash_attention.launches += 1
     return out
 

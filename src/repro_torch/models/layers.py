@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as Fn
 
 from repro_torch import rng
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as KOPS
 from repro_torch.kernels import ref as KREF
 
@@ -88,9 +89,9 @@ def apply_norm(p, x, eps: float = 1e-6):
 # RoPE
 # ----------------------------------------------------------------------
 
-def rope_freqs(head_dim: int, theta: float, device="cpu") -> torch.Tensor:
+def rope_freqs(head_dim: int, theta: float, device="cuda") -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
-                        device=device) / head_dim
+                        device=resolve_device(device)) / head_dim
     return 1.0 / (theta ** exps)
 
 

@@ -2,6 +2,8 @@
 Pallas kernel (interpret mode, as tests/test_kernels.py runs it) and its
 oracle, over the JAX tests' sweep.  The CUDA kernel itself runs only on
 a GPU (see tests/test_torch_gpu.py and chip_smoke.py)."""
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -69,3 +71,37 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     q = torch.zeros(1, 8, 1, 16)
     with pytest.raises(ValueError, match="CUDA"):
         TFA.flash_attention_cuda(q, q, q, causal=True, window=0)
+
+
+def test_aligned_copies_only_a_misaligned_view():
+    """The kernel copies 16-byte chunks, so the wrapper hands it tensors
+    that start on a 16-byte boundary: a view one bf16 element into its
+    storage is copied, an aligned contiguous tensor passes as it is."""
+    base = torch.zeros(1 + 2 * 8 * 16, dtype=torch.bfloat16)
+    view = base[1:].view(1, 8, 2, 16)
+    assert view.data_ptr() % 16
+    fixed = TOPS._aligned(view)
+    assert fixed.data_ptr() % 16 == 0 and torch.equal(fixed, view)
+    whole = torch.zeros(1, 8, 2, 16, dtype=torch.bfloat16)
+    assert TOPS._aligned(whole) is whole
+
+
+def test_library_found_built_reads_back_its_ptxas_log(tmp_path, monkeypatch):
+    """A library already built is loaded without nvcc and keeps the ptxas
+    report written beside it at its build, so a later process still
+    prints the registers and spills."""
+    from repro_torch.kernels import build as BUILD
+    lib = BUILD.CudaLibrary("flash_attention.cu", {
+        "flash_attention": ([BUILD.P], BUILD.I)})
+    assert lib.path().name.startswith("libflash_attention_")
+    assert lib.path().parent == BUILD.BUILD_DIR
+    monkeypatch.setattr(BUILD, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(BUILD, "_nvcc", lambda: pytest.fail("rebuilt"))
+    monkeypatch.setattr(BUILD.ctypes, "CDLL", lambda path: SimpleNamespace(
+        flash_attention=SimpleNamespace()))
+    lib.path().write_bytes(b"")
+    lib.path().with_suffix(".log").write_text("ptxas info: report")
+    loaded = lib.load()
+    assert loaded.flash_attention.restype is BUILD.I
+    assert loaded.flash_attention.argtypes == [BUILD.P]
+    assert lib.log == "ptxas info: report" and lib.build_s == 0.0

@@ -94,6 +94,29 @@ def test_assign_kernel_matches_plain_version(cuda, n, f, k, dtype):
                                rtol=1e-4, atol=1e-3)
 
 
+# bf16 bound (see FLASH_TOL in chip_smoke.py): the kernel and the plain
+# version compute in fp32 (the bf16 kernel carries p as two bf16 terms,
+# about 16 bits) and round to bf16 at most one unit apart
+BF16_RTOL = 2.0 ** -7
+
+
+def _check_flash(cuda, q, k, v, causal, window):
+    before = TOPS.flash_attention.launches
+    out = TOPS.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert TOPS.flash_attention.launches == before + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    want = TOPS._flash_attention_torch(q, k, v, causal=causal, window=window)
+    rtol = 0.0 if q.dtype == torch.float32 else BF16_RTOL
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=rtol,
+                               atol=1e-4)
+    # deterministic: no atomics, a fixed order of every sum
+    again = TOPS.flash_attention(q, k, v, causal=causal, window=window)
+    assert torch.equal(out, again)
+    return want
+
+
 @pytest.mark.parametrize("b,sq,sk,h,hd,dtype,causal,window", [
     (1, 64, 64, 1, 16, torch.float32, True, 0),
     (2, 128, 128, 4, 64, torch.float32, False, 0),
@@ -105,7 +128,25 @@ def test_assign_kernel_matches_plain_version(cuda, n, f, k, dtype):
     (1, 150, 70, 2, 16, torch.float32, True, 0),
     (1, 200, 200, 2, 32, torch.float32, False, 48),
     (1, 300, 300, 2, 128, torch.bfloat16, True, 100),
-    (1, 1031, 1031, 14, 64, torch.bfloat16, True, 0)])
+    (1, 1031, 1031, 14, 64, torch.bfloat16, True, 0),
+    # the tensor-core path: a padded contraction (hd 8, 40, 96 are not
+    # multiples of 16 or of the accumulator's width) and the wide
+    # accumulator with 32-key tiles (hd 256)
+    (2, 96, 96, 3, 8, torch.bfloat16, True, 0),
+    (1, 200, 200, 2, 40, torch.bfloat16, False, 0),
+    (1, 260, 260, 4, 96, torch.bfloat16, True, 0),
+    (1, 130, 130, 2, 256, torch.bfloat16, True, 0),
+    (1, 300, 300, 2, 256, torch.bfloat16, False, 70),
+    # Sq != Sk both ways, off the 64-row and 64-key tiles
+    (1, 70, 150, 2, 40, torch.bfloat16, False, 0),
+    (1, 100, 333, 3, 64, torch.bfloat16, True, 0),
+    (1, 150, 70, 2, 64, torch.bfloat16, True, 0),
+    (1, 333, 100, 2, 128, torch.bfloat16, False, 0),
+    # causal with B 2 and many heads
+    (2, 520, 520, 16, 64, torch.bfloat16, True, 0),
+    # windows whose edge falls inside a key tile
+    (1, 400, 400, 2, 64, torch.bfloat16, True, 77),
+    (1, 300, 300, 3, 128, torch.bfloat16, False, 100)])
 def test_flash_kernel_matches_plain_version(cuda, b, sq, sk, h, hd, dtype,
                                             causal, window):
     """fp32 at 1e-4 absolute (sum order of fp32 products); bf16 at 1e-4
@@ -115,16 +156,31 @@ def test_flash_kernel_matches_plain_version(cuda, b, sq, sk, h, hd, dtype,
     q = torch.randn(b, sq, h, hd, generator=g).to(cuda, dtype)
     k, v = (torch.randn(b, sk, h, hd, generator=g).to(cuda, dtype)
             for _ in range(2))
-    before = TOPS.flash_attention.launches
-    out = TOPS.flash_attention(q, k, v, causal=causal, window=window)
-    torch.cuda.synchronize()
-    assert TOPS.flash_attention.launches == before + 1
-    assert out.dtype == dtype and out.shape == q.shape
-    want = TOPS._flash_attention_torch(q, k, v, causal=causal, window=window)
-    rtol = 0.0 if dtype == torch.float32 else 2.0 ** -7
-    np.testing.assert_allclose(out.float().cpu().numpy(),
-                               want.float().cpu().numpy(), rtol=rtol,
-                               atol=1e-4)
+    _check_flash(cuda, q, k, v, causal, window)
+
+
+def test_flash_kernel_keeps_p_precise_where_early_causal_rows_cancel(cuda):
+    """v alternates +1 / -1 over the keys, so an early causal row's output
+    is a small difference of a few p.  The kernel meets the bf16 bound;
+    the same attention with p rounded once to bf16 before P.V (a single
+    bf16 P) does not, which shows that the case tells the two apart."""
+    b, s, h, hd = 1, 256, 8, 64
+    g = torch.Generator(device="cpu").manual_seed(11)
+    q, k = (torch.randn(b, s, h, hd, generator=g).to(cuda, torch.bfloat16)
+            for _ in range(2))
+    sign = 1.0 - 2.0 * (torch.arange(s, device=cuda) % 2)
+    v = sign.view(1, s, 1, 1).expand(b, s, h, hd).to(torch.bfloat16)
+    v = v.contiguous()
+    want = _check_flash(cuda, q, k, v, True, 0).float()
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / hd ** 0.5
+    pos = torch.arange(s, device=cuda)
+    sc = sc.masked_fill(pos[None, :] > pos[:, None], -1e30)
+    p = torch.exp(sc - sc.amax(-1, keepdim=True))
+    single = torch.einsum("bhqk,bkhd->bqhd", p.bfloat16().float(),
+                          v.float()) / p.sum(-1).transpose(1, 2)[..., None]
+    single = single.to(torch.bfloat16).float()
+    share = ((single - want).abs() / (1e-4 + BF16_RTOL * want.abs())).max()
+    assert float(share) > 1.0
 
 
 @pytest.mark.parametrize("hd", [28, 264])

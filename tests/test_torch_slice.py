@@ -22,6 +22,7 @@ from repro_torch.core.server import FederatedServer as TServer
 from repro_torch.data import synthetic as TSYN
 from repro_torch.launch import train as TRAIN
 from repro_torch.models import cnn as TCNN
+from repro_torch.models import layers as TLAYERS
 from repro_torch.sim.runtime import make_runtime
 
 # one intra-op thread: pytest-xdist runs several workers on the same
@@ -104,6 +105,7 @@ DEFAULT_DEVICE_CALLS = {
     "params_from_numpy": lambda d: interop.params_from_numpy(
         {"c1_b": np.zeros(6, np.float32)}),
     "rng.uniform": lambda d: rng.uniform(rng.PRNGKey(0), (3,)),
+    "rope_freqs": lambda d: TLAYERS.rope_freqs(64, 10_000.0),
 }
 
 
