@@ -15,7 +15,8 @@
    ``ops.kmeans_assign``, ``ops.flash_attention``, the calls the paths
    make) against its plain PyTorch version on the card, at the paths'
    shapes and at the other shapes listed in KERNEL_SHAPES and
-   FLASH_SHAPES, and times both (median of 20 runs, CUDA events), and
+   FLASH_SHAPES, and times both (median of 20 runs, CUDA events; the
+   k-means kernels also with the host's enqueue work, ``call_ms``), and
    flash attention also against ``scaled_dot_product_attention`` (the
    library yardstick; the port never calls it), with its achieved
    TFLOP/s (the useful operations over its time), SDPA's share of the
@@ -96,12 +97,14 @@ REFERENCE_WINNERS = [[1, 35, 40], [12, 35, 36, 41, 49, 58, 60, 63],
 # the GQA expansion), "window" starcoder2-3b's sliding window at 8,192
 # tokens, "phi3v" phi-3-vision's head_dim 96 (32 heads) at 4,096 tokens,
 # "ragged" a length off the 64-key tiles with head_dim 96 in fp32 (the
-# CUDA-core instantiation)
+# CUDA-core instantiation), "hd28" qwen2-0.5b's smoke config (4 heads of
+# head_dim 28, which the wrapper zero-pads to 32) at 2,048 tokens
 FLASH_SHAPES = (
     ("qwen2", 1, 4096, 14, 64, torch.bfloat16, True, 0),
     ("window", 1, 8192, 24, 128, torch.bfloat16, True, 4096),
     ("phi3v", 1, 4096, 32, 96, torch.bfloat16, True, 0),
     ("ragged", 2, 1100, 3, 96, torch.float32, False, 0),
+    ("hd28", 1, 2048, 4, 28, torch.bfloat16, True, 0),
 )
 # per-element bound against the plain version, |out - want| <= atol +
 # rtol * |want|.  Both compute in fp32 and differ only in the order of
@@ -245,12 +248,16 @@ def check_assign(OPS, dev, label, n, f, k, dtype, seed):
         require(bool((picked - best2[:, 0]
                       <= 1e-4 * best2[:, 0].abs() + 1e-4).all()),
                 f"assign {label}: a near-tie label is not nearest")
+    again = OPS.kmeans_assign(x, c)
+    require(torch.equal(lab, again[0]) and torch.equal(dist, again[1]),
+            f"assign {label}: two runs differ")
     ms = median_ms(lambda: OPS.kmeans_assign(x, c))
+    call_ms = median_ms(lambda: OPS.kmeans_assign(x, c), host_ahead=False)
     plain_ms = median_ms(lambda: OPS._kmeans_assign_torch(x, c))
     bound_ms, bound_by = assign_bound(n, f, k, x.element_size())
     err = float(dist_err.max())
     print(f"kmeans_assign[{label}] N={n} F={f} K={k} "
-          f"{str(dtype).removeprefix('torch.')}: ms={ms!r} "
+          f"{str(dtype).removeprefix('torch.')}: ms={ms!r} call_ms={call_ms!r} "
           f"plain_ms={plain_ms!r} bound_ms={bound_ms!r} ({bound_by}) "
           f"max_abs_err={err!r} near_tie_rows={int((~clear).sum())} "
           f"label_mismatches={int((lab != lab_p).sum())}", flush=True)

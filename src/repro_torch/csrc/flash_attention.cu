@@ -637,7 +637,8 @@ extern "C" {
 
 // o = attention(q, k, v) for q (B, Sq, H, hd), k, v (B, Sk, H, hd) and o
 // (B, Sq, H, hd), all of one type (bf16 when is_bf16), contiguous;
-// 8 <= hd <= 256, hd % 8 == 0; scale = 1/sqrt(hd) as the caller rounds it.
+// 8 <= hd <= 256, hd % 8 == 0; scale = 1/sqrt(hd) as the caller rounds it
+// (of the true hd where the caller zero-padded it to a multiple of 8).
 int flash_attention(const void* q, const void* k, const void* v, void* o,
                     int is_bf16, int B, int H, int Sq, int Sk, int hd,
                     float scale, int causal, int window, void* stream) {

@@ -10,6 +10,7 @@ tests import this module without a compiler.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -22,13 +23,15 @@ LIBRARY = B.CudaLibrary("flash_attention.cu", {
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool, window: int) -> torch.Tensor:
+                         *, causal: bool, window: int,
+                         scale: Optional[float] = None) -> torch.Tensor:
     """Launch the kernel on ``torch.cuda.current_stream()``.
 
     q: (B, Sq, H, hd), k and v: (B, Sk, H, hd) (K/V already expanded to H
     heads), all float32 or all bfloat16, contiguous and 16-byte aligned, on
-    one CUDA device; hd a multiple of 8 up to 256.  Returns o (B, Sq, H,
-    hd) in q's type.  Raises on anything the kernel does not take and when
+    one CUDA device; hd a multiple of 8 up to 256.  Scores are scaled by
+    ``scale``, 1/sqrt(hd) unless given (a caller that zero-pads hd passes
+    that of the true hd).  Returns o (B, Sq, H, hd) in q's type.  Raises on anything the kernel does not take and when
     the launch fails."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention_cuda takes q, k and v on one CUDA "
@@ -62,7 +65,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             int(q.dtype == torch.bfloat16), b, h, sq, sk, hd,
-            1.0 / math.sqrt(hd), int(bool(causal)), int(window),
+            1.0 / math.sqrt(hd) if scale is None else float(scale),
+            int(bool(causal)), int(window),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "

@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels for k-means: the fused Lloyd step and
-the assign-only step, and their bindings.
+"""The hand-written CUDA kernels for k-means: the Lloyd step and the
+assign-only step, and their bindings.
 
 ``csrc/kmeans.cu`` replaces the Pallas TPU kernels
 ``repro/kernels/kmeans.py::lloyd_step`` (body ``_lloyd_kernel``) and
@@ -18,11 +18,10 @@ import torch
 from repro_torch.kernels import build as B
 
 LIBRARY = B.CudaLibrary("kmeans.cu", {
-    "lloyd_step": ([B.P, B.I, B.P, B.I, B.I, B.I, B.I, B.I, B.P, B.P, B.P,
-                    B.P, B.P, B.P, B.P], B.I),
-    "kmeans_assign": ([B.P, B.I, B.P, B.I, B.I, B.I, B.I, B.P, B.P, B.P],
-                      B.I),
-    "lloyd_rows_per_tile": ([], B.I),
+    "lloyd_step": ([B.P, B.I, B.P, B.I, B.I, B.I, B.I, B.P, B.P, B.P, B.P,
+                    B.P, B.P, B.P], B.I),
+    "kmeans_assign": ([B.P, B.I, B.P, B.I, B.I, B.I, B.P, B.P, B.P], B.I),
+    "lloyd_rows_per_chunk": ([], B.I),
     "lloyd_max_restarts": ([], B.I),
     "lloyd_max_centroids": ([], B.I),
 })
@@ -39,18 +38,11 @@ def _check_x(x: torch.Tensor, c: torch.Tensor, name: str) -> None:
         raise ValueError("x and c must be contiguous")
 
 
-def _grid(lib, x: torch.Tensor) -> int:
-    """Blocks of the partial kernel: one per 128-row tile, at most 4 per
-    SM (a block walks several tiles)."""
-    tiles = -(-x.shape[0] // lib.lloyd_rows_per_tile())
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    return min(tiles, 4 * sms)
-
-
 def lloyd_step_cuda(x: torch.Tensor, c: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                torch.Tensor]:
-    """Launch the fused Lloyd kernel on ``torch.cuda.current_stream()``.
+    """Launch the Lloyd step (assign, update and, for more than one chunk
+    of rows, the reduce) on ``torch.cuda.current_stream()``.
 
     x: (N, F) float32 or bfloat16, c: (R, K, F) float32, both contiguous
     on the same CUDA device.  Returns labels int32 (R, N), dist float32
@@ -69,20 +61,25 @@ def lloyd_step_cuda(x: torch.Tensor, c: torch.Tensor
                          f"{lib.lloyd_max_centroids()} and 1 <= R <= "
                          f"{lib.lloyd_max_restarts()}; got K={k}, R={r}, "
                          f"N={n}, F={f}")
-    blocks = _grid(lib, x)
     dev = x.device
     labels = torch.empty((r, n), dtype=torch.int32, device=dev)
     dist = torch.empty((r, n), dtype=torch.float32, device=dev)
     sums = torch.empty((r, k, f), dtype=torch.float32, device=dev)
     counts = torch.empty((r, k), dtype=torch.float32, device=dev)
-    psums = torch.empty((blocks, r, k, f), dtype=torch.float32, device=dev)
-    pcounts = torch.empty((blocks, r, k), dtype=torch.float32, device=dev)
+    # per-chunk partial sums, only where a reduce over chunks follows
+    chunks = -(-n // lib.lloyd_rows_per_chunk())
+    psums = pcounts = None
+    if chunks > 1:
+        psums = torch.empty((chunks, r, k, f), dtype=torch.float32,
+                            device=dev)
+        pcounts = torch.empty((chunks, r, k), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.lloyd_step(
             x.data_ptr(), int(x.dtype == torch.bfloat16), c.data_ptr(), n, f,
-            k, r, blocks, labels.data_ptr(), dist.data_ptr(),
-            sums.data_ptr(), counts.data_ptr(), psums.data_ptr(),
-            pcounts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            k, r, labels.data_ptr(), dist.data_ptr(), sums.data_ptr(),
+            counts.data_ptr(), psums.data_ptr() if chunks > 1 else None,
+            pcounts.data_ptr() if chunks > 1 else None,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lloyd_step kernel launch failed: CUDA error "
                            f"{err}")
@@ -113,7 +110,7 @@ def kmeans_assign_cuda(x: torch.Tensor, c: torch.Tensor
     with torch.cuda.device(x.device):
         err = lib.kmeans_assign(
             x.data_ptr(), int(x.dtype == torch.bfloat16), c.data_ptr(), n, f,
-            k, _grid(lib, x), labels.data_ptr(), dist.data_ptr(),
+            k, labels.data_ptr(), dist.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"kmeans_assign kernel launch failed: CUDA error "

@@ -18,6 +18,8 @@ so a run can show that its path went through the kernel.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.kernels import ref as REF
@@ -106,18 +108,35 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _pad_head_dim(t: torch.Tensor) -> torch.Tensor:
+    """t zero-padded along its last axis (head_dim) to the next multiple
+    of 8, which the kernel takes; a head_dim over 256 stays as it is (the
+    kernel refuses it)."""
+    hd = t.shape[-1]
+    if hd % 8 == 0 or hd > 256:
+        return t
+    return torch.nn.functional.pad(t, (0, -hd % 8))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """Forward attention: q (B, Sq, H, hd), k, v (B, Sk, H, hd) with K/V
-    already expanded to H heads -> (B, Sq, H, hd) in q's type."""
+    already expanded to H heads -> (B, Sq, H, hd) in q's type.
+
+    The kernel takes head dims that are multiples of 8; another hd under
+    256 is zero-padded to the next one (zero columns add nothing to q.k,
+    and the output's padded columns are dropped), with the scale of the
+    true hd."""
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
     if q.device.type == "cpu":
         return _flash_attention_torch(q, k, v, causal=causal, window=window)
-    q, k, v = (_aligned(t) for t in (q, k, v))
-    out = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    hd = q.shape[-1]
+    q, k, v = (_aligned(_pad_head_dim(t)) for t in (q, k, v))
+    out = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                               scale=1.0 / math.sqrt(hd))
     flash_attention.launches += 1
-    return out
+    return out[..., :hd] if out.shape[-1] != hd else out
 
 
 flash_attention.launches = 0

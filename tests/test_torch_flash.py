@@ -67,6 +67,28 @@ def test_ops_dispatch_on_cpu_uses_plain_version_and_never_launches():
     assert TOPS.flash_attention.launches == 0
 
 
+def test_zero_padded_head_dim_keeps_the_attention():
+    """The cuda route pads a head_dim that is not a multiple of 8 (qwen2-
+    0.5b's smoke config has 28) with zero columns and scales by the true
+    head_dim: the attention of the padded q, k, v, cut back to 28
+    columns, is the attention of the unpadded ones (fp32 sum order)."""
+    q, k, v = (torch.tensor(a) for a in _qkv(1, 96, 4, 28, 3))
+    qp, kp, vp = (TOPS._pad_head_dim(t) for t in (q, k, v))
+    assert qp.shape == (1, 96, 4, 32) and torch.equal(qp[..., :28], q)
+    assert not qp[..., 28:].any()
+    s = torch.einsum("bqhd,bkhd->bhqk", qp, kp) / 28 ** 0.5
+    pos = torch.arange(96)
+    s = s.masked_fill(pos[None, :] > pos[:, None], -1e30)
+    got = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), vp)
+    want = TOPS._flash_attention_torch(q, k, v, causal=True, window=0)
+    np.testing.assert_allclose(got[..., :28].numpy(), want.numpy(),
+                               rtol=0, atol=2e-6)
+    assert not got[..., 28:].any()
+    for hd in (32, 264):                       # taken, or refused, as is
+        t = torch.zeros(1, 8, 1, hd)
+        assert TOPS._pad_head_dim(t) is t
+
+
 def test_cuda_wrapper_refuses_cpu_tensors():
     q = torch.zeros(1, 8, 1, 16)
     with pytest.raises(ValueError, match="CUDA"):

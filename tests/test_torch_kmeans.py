@@ -75,6 +75,23 @@ def test_restart_batch_equals_single_calls(plain):
             np.testing.assert_array_equal(b[r].numpy(), s.numpy())
 
 
+@pytest.mark.parametrize("n", [100, 1000])
+def test_plain_step_keeps_permuted_restarts_bit_identical(n):
+    """The CPU twin of the gpu test of the same name: restart 1 holds
+    restart 0's centroids under permuted ids, and the plain step gives it
+    the same distances, sums and counts to the bit."""
+    x, c0 = _xc(n, 256, 10, seed=5)
+    perm = np.random.default_rng(n).permutation(10)
+    inv_perm = np.argsort(perm)
+    c = torch.tensor(np.stack([c0, c0[perm]]))          # c[1] = c[0][perm]
+    lab, dist, sums, counts = (t.numpy() for t in
+                               TOPS._lloyd_step_torch(torch.tensor(x), c))
+    np.testing.assert_array_equal(lab[1], inv_perm[lab[0]])
+    np.testing.assert_array_equal(dist[1], dist[0])
+    np.testing.assert_array_equal(sums[1], sums[0][perm])
+    np.testing.assert_array_equal(counts[1], counts[0][perm])
+
+
 def test_ops_dispatch_on_cpu_uses_plain_version_and_never_launches():
     x, c = _xc(100, 256, 10, r=4)
     before = TOPS.lloyd_step.launches
