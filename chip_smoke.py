@@ -36,7 +36,17 @@
    set to ``ops.kmeans_assign`` (as ``FederatedServer(assign_fn=...)``
    takes it), counts reset before and read after; it must pick the
    same winners.
-7. Serving path at full width: qwen2-0.5b (24 layers, bf16, weights
+7. Cohort runtimes path: the paper path of 4. again with ``--runtime
+   vectorized`` and ``--runtime device`` (the batched engine: one vmapped
+   stage-1 gradient pass, batched local training with fused FedAvg), each
+   with the counts reset before and read after (26 ``lloyd_step``
+   launches), held to REFERENCE_WINNERS and to the sequential cuda run's
+   final params (max |d| < 1e-4, tests/test_sim.py's bound); the device
+   runtime must meet no new shape after its warm-up.  Prints stage-1,
+   feature, k-means, warm-up and per-round seconds for all three
+   runtimes, and times the feature pass over the whole client axis
+   against 4-wide chunks.
+8. Serving path at full width: qwen2-0.5b (24 layers, bf16, weights
    from ``init_params(cfg, PRNGKey(0))``) with ``attn_impl="pallas"``:
    ``logits_fn`` prefill of 4,096 tokens, counts reset before and read
    after (24 flash_attention launches), held against the plain
@@ -47,7 +57,8 @@
 It prints one JSON line with the kernels' numbers and, last, the JSON
 status line.  ``--profile`` adds a torch.profiler pass before them:
 device time by kernel for the fleet-shape Lloyd step, for one more
-paper-path run, for a warm prefill and for 32 decode steps, and each
+paper-path run on the sequential and on the vectorized runtime, for a
+warm prefill and for 32 decode steps, and each
 run's device-busy share of its wall time (it adds minutes, so the plain
 smoke run leaves it out).  Without a CUDA device, or run outside a
 checkout, it exits non-zero and prints no result.  Any failed check
@@ -55,6 +66,7 @@ raises.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import re
@@ -120,6 +132,10 @@ PREFILL_LEN = 4096
 DECODE_LEN = 1536          # > 1024, so logits_fn runs the kernel
 # the bound tests/test_models.py holds decode to against the forward pass
 LOGITS_REL_TOL = 2e-2
+# the bound tests/test_sim.py holds every runtime's params to against the
+# sequential runtime's
+PARAMS_TOL = 1e-4
+BATCHED_RUNTIMES = ("vectorized", "device")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -547,18 +563,137 @@ def profile_pass(OPS, TRAIN) -> None:
         print(f"profile fleet lloyd_step: {e.key[:60]} count={e.count} "
               f"device_us_per_call={e.self_device_time_total / e.count!r}",
               flush=True)
-    t0 = time.perf_counter()
-    with profile(activities=acts) as prof:
-        TRAIN.main(MAIN_ARGS)
+    for runtime in ("sequential", "vectorized"):
+        t0 = time.perf_counter()
+        with profile(activities=acts) as prof:
+            TRAIN.main(MAIN_ARGS + ["--runtime", runtime])
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rows = _kernel_rows(prof)
+        busy = sum(e.self_device_time_total for e in rows) / 1e6
+        print(f"profile main path ({runtime}): wall_s={wall!r} "
+              f"device_busy_s={busy!r} busy_share={busy / wall!r} "
+              f"kernels={len(rows)}", flush=True)
+        for e in rows[:12]:
+            print(f"  {e.key[:60]} count={e.count} "
+                  f"device_ms={e.self_device_time_total / 1e3!r}",
+                  flush=True)
+
+
+def record_servers(TRAIN):
+    """Make ``TRAIN.main`` keep every FederatedServer it builds (for the
+    final params and the runtime's engine); returns the list."""
+    servers = []
+
+    class Recording(TRAIN.FederatedServer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            servers.append(self)
+
+    TRAIN.FederatedServer = Recording
+    return servers
+
+
+def runtime_seconds(name, result, spans):
+    """The paper path's end-to-end seconds of one run from its spans."""
+    stage1 = spans["run/cluster"]
+    warmup = spans.get("run/warmup", 0.0)
+    rounds = len(result["rounds"])
+    print(f"runtime {name}: stage1_s={stage1!r} "
+          f"features_s={spans['cluster/features']!r} "
+          f"project_s={spans['cluster/project']!r} "
+          f"kmeans_s={spans['cluster/kmeans']!r} warmup_s={warmup!r} "
+          f"s_per_round={(result['wall_s'] - stage1 - warmup) / rounds!r} "
+          f"round_train_s={spans['round/train']!r}", flush=True)
+
+
+def max_param_diff(a, b) -> float:
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+def cohort_runtimes_path(OPS, TRAIN, obs, servers, seq_params):
+    """The paper path on the batched runtimes, each held to the winners
+    and to the sequential cuda run's final params.  Returns the
+    vectorized run's server."""
+    # torch.func.grad imports torch._dynamo at its first call, once a
+    # process: timed here on its own, so the runs' spans hold their work
+    t = time.perf_counter()
+    importlib.import_module("torch._dynamo")
+    print(f"first-use import of torch._dynamo (torch.func.grad): "
+          f"{time.perf_counter() - t!r} s", flush=True)
+    got = {}
+    for runtime in BATCHED_RUNTIMES:
+        for name in ("lloyd_step", "kmeans_assign", "flash_attention"):
+            getattr(OPS, name).launches = 0
+        obs.SPANS.clear()
+        result = TRAIN.main(MAIN_ARGS + ["--runtime", runtime])
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    rows = _kernel_rows(prof)
-    busy = sum(e.self_device_time_total for e in rows) / 1e6
-    print(f"profile main path: wall_s={wall!r} device_busy_s={busy!r} "
-          f"busy_share={busy / wall!r} kernels={len(rows)}", flush=True)
-    for e in rows[:12]:
-        print(f"  {e.key[:60]} count={e.count} "
-              f"device_ms={e.self_device_time_total / 1e3!r}", flush=True)
+        launches = OPS.lloyd_step.launches
+        srv = servers[-1]
+        require(srv.runtime.name == runtime,
+                f"--runtime {runtime} built a {srv.runtime.name} runtime")
+        require(launches == 26, f"{runtime}: stage 1 made {launches} "
+                "lloyd_step launches, expected 26")
+        require(OPS.kmeans_assign.launches == OPS.flash_attention.launches
+                == 0, f"{runtime}: launched a kernel it does not use")
+        require(result["selected"] == REFERENCE_WINNERS,
+                f"{runtime}: rounds selected {result['selected']}, the JAX "
+                f"package selects {REFERENCE_WINNERS}")
+        require(result["params_finite"], f"{runtime}: non-finite params")
+        diff = max_param_diff(srv.params, seq_params)
+        require(diff < PARAMS_TOL, f"{runtime}: final params differ from "
+                f"the sequential run's by {diff} >= {PARAMS_TOL}")
+        stats = srv.runtime.engine.stats
+        extra = ""
+        if runtime == "device":
+            # warm-up notes one miss per (class, tier); the rounds none
+            shapes = sum(len(c.tiers) for c in srv.runtime.store.classes)
+            require(stats["shape_misses"] == shapes,
+                    f"device: {stats['shape_misses']} shape misses, the "
+                    f"warm-up met {shapes} shapes: the rounds met new ones")
+            extra = (f" classes={len(srv.runtime.store.classes)} "
+                     f"warmup_shapes={shapes}")
+        print(f"cohort runtime {runtime}: lloyd_step launches={launches} "
+              f"selected=REFERENCE_WINNERS max_abs_dparams_vs_sequential="
+              f"{diff!r} shape_hits={stats['shape_hits']} "
+              f"shape_misses={stats['shape_misses']}{extra}", flush=True)
+        got[runtime] = (result, dict(obs.SPANS), srv)
+    for runtime, (result, spans, _) in got.items():
+        runtime_seconds(runtime, result, spans)
+    return got["vectorized"][2]
+
+
+def feature_pass_widths(runtime, params) -> None:
+    """The stage-1 gradient pass over the whole client axis at once (the
+    port's design) against ``cohort_vmap_width``-wide chunks (the JAX
+    engine's CPU layout): both times with the host's enqueue work, the
+    whole-axis peak memory, and their agreement."""
+    from repro_torch import rng
+    xb, yb = runtime._gather_gradient_windows(rng.PRNGKey(0))
+    eng, w = runtime.engine, runtime.cfg.cohort_vmap_width
+
+    def whole():
+        return eng.gradient_features(params, xb, yb)
+
+    def chunked():
+        return torch.cat([eng.gradient_features(params, xb[i:i + w],
+                                                yb[i:i + w])
+                          for i in range(0, xb.shape[0], w)])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    full = whole()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    diff = float((full - chunked()).abs().max())
+    require(diff < PARAMS_TOL, f"feature pass: chunks differ by {diff}")
+    ms_whole = median_ms(whole, reps=10, host_ahead=False)
+    ms_chunked = median_ms(chunked, reps=10, host_ahead=False)
+    print(f"feature pass N={xb.shape[0]} T0={xb.shape[1]} "
+          f"window={xb.shape[2]}: whole_axis_ms={ms_whole!r} "
+          f"chunks_of_{w}_ms={ms_chunked!r} whole_axis_peak_bytes={peak} "
+          f"max_abs_diff={diff!r}", flush=True)
 
 
 def toolkit(BUILD, name: str) -> str:
@@ -682,12 +817,14 @@ def main() -> int:
 
     # ---- main path -----------------------------------------------------
     phase("paper path", t0)
+    servers = record_servers(TRAIN)
     for name in ("lloyd_step", "kmeans_assign", "flash_attention"):
         getattr(OPS, name).launches = 0
     obs.SPANS.clear()
     result = TRAIN.main(MAIN_ARGS)
     torch.cuda.synchronize()
     launches = OPS.lloyd_step.launches
+    seq_spans, seq_params = dict(obs.SPANS), servers[-1].params
     require(OPS.kmeans_assign.launches == OPS.flash_attention.launches == 0,
             "the paper path launched a kernel it does not use")
     stage1_s = obs.SPANS["run/cluster"]
@@ -746,6 +883,12 @@ def main() -> int:
             "the assign path launched a kernel it does not use")
     require(hooked["selected"] == REFERENCE_WINNERS,
             f"with the assign hook the rounds selected {hooked['selected']}")
+
+    # ---- cohort runtimes path ------------------------------------------
+    phase("cohort runtimes path", t0)
+    runtime_seconds("sequential", result, seq_spans)
+    vec = cohort_runtimes_path(OPS, TRAIN, obs, servers, seq_params)
+    feature_pass_widths(vec.runtime, vec.params)
 
     # ---- serving path --------------------------------------------------
     phase("serving path", t0)

@@ -38,6 +38,22 @@ def window_indices(key, local_size: int, window: int,
     return rng.randint(key, (window,), 0, local_size, device)
 
 
+def window_index_table(key, sizes: torch.Tensor, resamples: int,
+                       window: int) -> torch.Tensor:
+    """Every client's sample-window draws at once, (N, resamples, window)
+    on ``sizes``' device: entry [i, t] is ``window_indices(fold_in(
+    fold_in(key, i), t), sizes[i], window)``, the draws of
+    :func:`cluster_clients`' per-client loop, bit for bit."""
+    n = sizes.shape[0]
+    ki = rng.fold_in_rows(key, torch.arange(n, device=sizes.device))
+    kit = rng.fold_in_rows(ki.repeat_interleave(resamples, 0),
+                           torch.arange(resamples,
+                                        device=sizes.device).repeat(n))
+    idx = rng.randint_rows(kit, window, 0,
+                           sizes.repeat_interleave(resamples))
+    return idx.reshape(n, resamples, window)
+
+
 def flatten_tree(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Concatenate the leaves in sorted-key order — ``jax.tree.leaves``'
     order on a dict, not the module's registration order."""
@@ -206,7 +222,8 @@ def cluster_clients(grad_fn: Callable, params, client_data, cfg: FLConfig,
     """Cluster all clients.  client_data: list of (x, y) tensors per
     client.  ``feature_kind='gradient'`` is the paper's scheme; the
     weight-delta baseline is not ported yet (ROADMAP.md, queue 1).
-    ``precomputed_feats`` (N, D) bypasses the per-client feature loop;
+    ``precomputed_feats`` (N, D) bypasses the per-client feature loop
+    (``client_data`` is then unused);
     ``assign_fn`` overrides k-means' assignment (see :func:`kmeans`).
     Returns (labels (N,), centroids, features)."""
     if feature_kind != "gradient":

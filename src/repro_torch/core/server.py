@@ -128,9 +128,12 @@ class FederatedServer:
         K-means runs through the fused Lloyd step unless ``assign_fn``
         (for example ``ops.kmeans_assign``'s labels) overrides the
         assignment."""
-        data = [self.runtime.local_data(i) for i in range(len(self.clients))]
         key = self._next_key()
+        # the batched runtimes compute the features in one pass; None
+        # means the per-client loop of cluster_clients
         feats = self.runtime.cluster_features(self.params, key, "gradient")
+        data = ([self.runtime.local_data(i) for i in range(len(self.clients))]
+                if feats is None else None)
         labels, _, _ = CL.cluster_clients(
             self.adapter.grad, self.params, data, self.cfg, key,
             assign_fn=self.assign_fn, precomputed_feats=feats)
@@ -209,6 +212,10 @@ class FederatedServer:
         drained eval; it never changes the eval cadence."""
         with obs.span("run/cluster"):
             self.cluster()
+        warmup = getattr(self.runtime, "warmup", None)
+        if warmup is not None:    # device runtime: meet every class shape
+            with obs.span("run/warmup"):
+                warmup(self.params)
         T = rounds if rounds is not None else self.cfg.rounds
         for t in range(T):
             final = t == T - 1

@@ -3,11 +3,13 @@
 The paper-faithful simulation: N edge clients with CNNs on a synthetic
 non-IID/imbalanced image dataset, gradient clustering + per-cluster
 auction selection, FedAvg/FedProx aggregation and energy accounting, on
-the ``sequential`` runtime.  It takes the JAX CLI's flags with the
+the ``sequential``, ``vectorized`` or ``device`` runtime (``sharded``
+raises ``NotImplementedError``).  It takes the JAX CLI's flags with the
 same defaults (``python -m repro.launch.train``), plus ``--device``:
 
   python -m repro_torch.launch.train --mode paper              # on cuda
   python -m repro_torch.launch.train --mode paper --device cpu
+  python -m repro_torch.launch.train --mode paper --runtime device
 
 The run is on the GPU unless ``--device cpu`` is given; ``cuda`` with no
 GPU raises.  TF32 is switched off for matmuls and cuDNN, so float32 stays

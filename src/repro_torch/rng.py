@@ -105,6 +105,17 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     return torch.cat([a, b])
 
 
+def fold_in_rows(keys: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """``fold_in(keys[m], data[m])`` for every row m at once: ``keys``
+    (M, 2) (or one (2,) key for every row), ``data`` (M,) int64; returns
+    (M, 2) keys on ``data``'s device, bit-identical to the one-key
+    :func:`fold_in`."""
+    keys = keys.to(data.device).reshape(-1, 2)
+    d = data.to(torch.int64) & _MASK
+    a, b = threefry2x32(keys[:, 0], keys[:, 1], torch.zeros_like(d), d)
+    return torch.stack([a, b], dim=-1)
+
+
 def bits(key: torch.Tensor, shape: Shape = (), device="cuda") -> torch.Tensor:
     """``jax.random.bits`` at 32 bits: uint32 values as an int64 tensor."""
     device = resolve_device(device)
@@ -113,6 +124,18 @@ def bits(key: torch.Tensor, shape: Shape = (), device="cuda") -> torch.Tensor:
     hi, lo = _counters(shape, device)
     a, b = threefry2x32(k1, k2, hi, lo)
     return a ^ b
+
+
+def _fold_range(higher: torch.Tensor, lower: torch.Tensor, lo: torch.Tensor,
+                hi: torch.Tensor) -> torch.Tensor:
+    """``jax.random.randint``'s fold of two 32-bit draws into [lo, hi),
+    uint32 wrap-around included."""
+    span = torch.where(hi <= lo, torch.ones_like(hi), (hi - lo) & _MASK)
+    mult = (65536 % span)
+    mult = ((mult * mult) & _MASK) % span
+    off = (((higher % span) * mult) & _MASK) + (lower % span)
+    off = (off & _MASK) % span
+    return lo + off
 
 
 def randint(key: torch.Tensor, shape: Shape, minval, maxval,
@@ -127,12 +150,26 @@ def randint(key: torch.Tensor, shape: Shape, minval, maxval,
     lower = bits(kl, shape, device)
     lo = torch.as_tensor(minval, dtype=torch.int64, device=device)
     hi = torch.as_tensor(maxval, dtype=torch.int64, device=device)
-    span = torch.where(hi <= lo, torch.ones_like(hi), (hi - lo) & _MASK)
-    mult = (65536 % span)
-    mult = ((mult * mult) & _MASK) % span
-    off = (((higher % span) * mult) & _MASK) + (lower % span)
-    off = (off & _MASK) % span
-    return lo + off
+    return _fold_range(higher, lower, lo, hi)
+
+
+def randint_rows(keys: torch.Tensor, n: int, minval: int,
+                 maxval: torch.Tensor) -> torch.Tensor:
+    """``randint(keys[m], (n,), minval, maxval[m])`` for every row m at
+    once: ``keys`` (M, 2) and ``maxval`` (M,) on one device; returns
+    (M, n) int64, bit-identical to the one-key :func:`randint`."""
+    k1, k2 = keys[:, :1], keys[:, 1:]
+    zero = torch.zeros((1, 2), dtype=torch.int64, device=keys.device)
+    # split(keys[m]): key j of row m is (w1[m, j], w2[m, j])
+    w1, w2 = threefry2x32(k1, k2, zero, zero + torch.arange(
+        2, device=keys.device))
+    hi, lo = _counters((n,), keys.device)
+    draws = [a ^ b for a, b in (
+        threefry2x32(w1[:, j:j + 1], w2[:, j:j + 1], hi[None], lo[None])
+        for j in (0, 1))]
+    return _fold_range(draws[0], draws[1],
+                       torch.full_like(draws[0][:, :1], int(minval)),
+                       maxval.to(torch.int64)[:, None])
 
 
 def uniform(key: torch.Tensor, shape: Shape = (), minval=0.0, maxval=1.0,

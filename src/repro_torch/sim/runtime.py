@@ -1,11 +1,23 @@
 """Stage-3 execution backends (``FLConfig.runtime``).
 
-Only ``sequential`` is ported: the reference per-client loop, one local
-SGD step per minibatch, with the JAX package's numpy-seeded shuffles and
-size-weighted FedAvg.  The batched runtimes (``vectorized``, ``sharded``,
-``device``) are not ported yet (ROADMAP.md, queue 1).  The global pool
-lives on the runtime's device once; each step gathers its minibatch
-there.
+  * ``sequential`` — the reference per-client loop, one local SGD step
+    per minibatch, with the JAX package's numpy-seeded shuffles and
+    size-weighted FedAvg.  The global pool lives on the runtime's device
+    once; each step gathers its minibatch there.
+  * ``vectorized`` — the batched cohort engine (repro_torch.sim.engine):
+    the round's winners are packed on the host into size buckets, and
+    each bucket trains as one vmapped program per step with the FedAvg
+    partial fused in.  Stage 1's gradient features are one batched pass
+    too, over windows gathered on the device.
+  * ``device`` — the device-resident fleet (repro_torch.sim.fleet): every
+    client's data is packed once at init into static capacity classes on
+    the device; a round sends only small index tensors, and
+    :meth:`DeviceRuntime.warmup` meets every class shape before round 0.
+
+All backends train on the same shuffles, batch boundaries and FedAvg
+weights; results agree up to float reassociation, and the selection logs
+are identical.  ``sharded`` (the multi-GPU mesh) is not ported yet
+(ROADMAP.md, queue 1), nor the defended path's ``train_cohort_updates``.
 """
 from __future__ import annotations
 
@@ -17,9 +29,14 @@ import torch
 from repro_torch import obs
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.adapters import ModelAdapter
+from repro_torch.core.clustering import window_index_table
 from repro_torch.device import resolve_device
 from repro_torch.optim import apply_updates, fedprox_grad, sgd
-from repro_torch.sim.cohort import drop_zero_size_winners, oracle_batch_plan
+from repro_torch.sim.cohort import (HostPlanCache, drop_zero_size_winners,
+                                    oracle_batch_plan, pack_cohort,
+                                    pack_feature_pass)
+from repro_torch.sim.engine import CohortEngine
+from repro_torch.sim.fleet import ClassBatch, FleetStore
 
 RUNTIMES = ("sequential", "vectorized", "sharded", "device")
 
@@ -99,13 +116,131 @@ class SequentialRuntime:
         return None   # the per-client loop in clustering.cluster_clients
 
 
+class VectorizedRuntime(SequentialRuntime):
+    """Cohort engine backend: each host-packed bucket trains as one
+    vmapped program per step.  Inherits the sequential ``train_client``
+    (a single client has no batching to exploit)."""
+
+    name = "vectorized"
+
+    def __init__(self, cfg: FLConfig, adapter: ModelAdapter,
+                 x: np.ndarray, y: np.ndarray, clients, device="cuda"):
+        super().__init__(cfg, adapter, x, y, clients, device)
+        self.engine = CohortEngine(adapter, cfg)
+        self.x_host, self.y_host = np.asarray(x), np.asarray(y)
+        # memoized plan structure and local shards: packing rebuilds only
+        # the shuffle permutations per round
+        self.plan_cache = HostPlanCache(self.x_host, self.y_host, clients,
+                                        cfg.local_epochs)
+        sizes = self.plan_cache.sizes
+        shards = np.zeros((len(clients), max(int(sizes.max()), 1)),
+                          np.int64)
+        for i, s in enumerate(self.plan_cache.shards):
+            shards[i, :len(s)] = s
+        # (N, max size) pool rows of every client's shard, for stage 1
+        self._shards = torch.tensor(shards, device=self.device)
+        self._sizes = torch.tensor(sizes, device=self.device)
+
+    def _pack(self, sel_idx, history):
+        with obs.span("cohort/pack"):
+            return pack_cohort(self.x_host, self.y_host, self.clients,
+                               sel_idx, history, self.cfg,
+                               cache=self.plan_cache)
+
+    def train_cohort(self, global_params: Tree, sel_idx: np.ndarray,
+                     history: np.ndarray) -> Optional[Tree]:
+        with obs.span("cohort/train"):
+            return self.engine.train_cohort(global_params,
+                                            self._pack(sel_idx, history))
+
+    def cluster_features(self, global_params: Tree, key,
+                         feature_kind: str) -> torch.Tensor:
+        """(N, D) raw clustering features as one batched pass."""
+        with obs.span("cluster/features"):
+            if feature_kind == "weights":
+                buckets = pack_feature_pass(
+                    self.x_host, self.y_host, self.clients,
+                    chunk_width=self.cfg.cohort_vmap_width,
+                    cache=self.plan_cache)
+                return self.engine.weight_features(global_params, buckets,
+                                                   len(self.clients))
+            return self.engine.gradient_features(
+                global_params, *self._gather_gradient_windows(key))
+
+    def _gather_gradient_windows(self, key):
+        """The sequential feature pass's sample windows (the same fold_in
+        stream as clustering.cluster_clients), gathered on the device
+        from the resident pool into (N, T0, window, ...) tensors."""
+        cfg = self.cfg
+        idx = window_index_table(key, self._sizes, cfg.cluster_resamples,
+                                 cfg.sample_window)
+        rows = self._shards.gather(1, idx.reshape(idx.shape[0], -1))
+        shape = idx.shape
+        return (self.x[rows].reshape(shape + self.x.shape[1:]),
+                self.y[rows].reshape(shape))
+
+
+class DeviceRuntime(VectorizedRuntime):
+    """Device-resident fleet backend (repro_torch.sim.fleet): the fleet's
+    data lives on the device in static capacity classes, a round's host
+    work is assembling small index plans, and every invocation has a
+    class shape that :meth:`warmup` has already met.  The clustering
+    feature passes are the vectorized runtime's."""
+
+    name = "device"
+
+    def __init__(self, cfg: FLConfig, adapter: ModelAdapter,
+                 x: np.ndarray, y: np.ndarray, clients, device="cuda"):
+        super().__init__(cfg, adapter, x, y, clients, device)
+        self.store = FleetStore(self.x_host, self.y_host, clients, cfg,
+                                cache=self.plan_cache, device=self.device)
+        # the class tensors now hold the fleet on the device
+        self.plan_cache.drop_local_data()
+        self._warmed = False
+
+    def warmup(self, global_params: Tree) -> None:
+        """One fully masked invocation per (class, tier), so the round
+        loop meets no new shape.  Idempotent."""
+        if self._warmed:
+            return
+        for b in self.store.warmup_batches():
+            self.engine.train_class(global_params, *self._put_batch(b))
+        self._warmed = True
+
+    def _put_batch(self, b: ClassBatch):
+        """The class store and one batch's index tensors on the device."""
+        c = self.store.classes[b.cls_id]
+        dev = self.device
+        return (c.x, c.y, torch.as_tensor(b.rows, device=dev).long(),
+                torch.as_tensor(b.plans, device=dev).long(),
+                torch.as_tensor(b.step_mask, device=dev),
+                torch.as_tensor(b.weights, device=dev))
+
+    def train_cohort(self, global_params: Tree, sel_idx: np.ndarray,
+                     history: np.ndarray) -> Optional[Tree]:
+        with obs.span("cohort/assemble"):
+            batches = self.store.assemble(sel_idx, np.asarray(history))
+        with obs.span("cohort/train"):
+            agg = None
+            for b in batches:
+                part = self.engine.train_class(global_params,
+                                               *self._put_batch(b))
+                agg = part if agg is None else {k: agg[k] + part[k]
+                                                for k in agg}
+            return agg
+
+
 def make_runtime(cfg: FLConfig, adapter: ModelAdapter, x, y, clients,
                  device="cuda") -> SequentialRuntime:
     if cfg.runtime == "sequential":
         return SequentialRuntime(cfg, adapter, x, y, clients, device)
-    if cfg.runtime in RUNTIMES:
+    if cfg.runtime == "vectorized":
+        return VectorizedRuntime(cfg, adapter, x, y, clients, device)
+    if cfg.runtime == "device":
+        return DeviceRuntime(cfg, adapter, x, y, clients, device)
+    if cfg.runtime == "sharded":
         raise NotImplementedError(
-            f"runtime {cfg.runtime!r} is not ported yet (ROADMAP.md, queue "
-            "1: batched cohort runtimes); only 'sequential' runs")
+            "runtime 'sharded' is not ported yet (ROADMAP.md, queue 1 item "
+            "10: the multi-GPU sharded runtime)")
     raise ValueError(
         f"unknown FLConfig.runtime={cfg.runtime!r}; expected {RUNTIMES}")

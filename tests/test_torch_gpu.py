@@ -1,5 +1,6 @@
 """The CUDA kernels (lloyd_step, kmeans_assign, flash_attention) against
-their plain versions on the card.
+their plain versions on the card, and the batched cohort runtimes on the
+card against the same runtimes on the CPU.
 
 Marked ``gpu``: it needs a CUDA device and nvcc, and skips elsewhere
 (the decision is made inside the fixture, never at import).  Run it on a
@@ -220,3 +221,42 @@ def test_flash_kernel_refuses_head_dims_it_does_not_take(cuda, hd):
     q = torch.zeros(1, 8, 1, hd, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         TOPS.flash_attention(q, q, q, causal=True, window=0)
+
+
+# the batched runtimes at tests/test_sim.py's size: their stage-3
+# aggregate and stage-1 gradient features on the card against the same
+# runtime on the CPU, within the reference's bound between runtimes
+RUNTIME_KW = dict(num_clients=10, num_clusters=3, select_ratio=0.4,
+                  rounds=2, local_epochs=2, sample_window=10,
+                  cluster_resamples=2, init_energy_mode="normal", seed=3)
+
+
+@pytest.mark.parametrize("runtime", ["vectorized", "device"])
+def test_batched_runtime_on_cuda_matches_cpu(cuda, runtime):
+    from repro_torch import rng
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core.adapters import cnn_adapter
+    from repro_torch.data.partition import partition_clients
+    from repro_torch.data.synthetic import make_image_dataset
+    from repro_torch.sim.runtime import make_runtime
+
+    cfg = FLConfig(**RUNTIME_KW, runtime=runtime)
+    train, _ = make_image_dataset("mnist", n_train=700, n_test=120, seed=3,
+                                  device="cpu")
+    clients = partition_clients(train.y, cfg, seed=3)
+    params = cnn_adapter("mnist", "cpu").init(rng.PRNGKey(0))
+    sel, hist = np.arange(10), np.arange(10) % 3
+    got = {}
+    for dev in ("cpu", cuda):
+        rt = make_runtime(cfg, cnn_adapter("mnist", dev), train.x, train.y,
+                          clients, dev)
+        p = {k: v.to(dev) for k, v in params.items()}
+        if runtime == "device":
+            rt.warmup(p)
+        agg = rt.train_cohort(p, sel, hist)
+        feats = rt.cluster_features(p, rng.PRNGKey(5), "gradient")
+        got[str(dev)] = ({k: v.cpu() for k, v in agg.items()}, feats.cpu())
+    (p_cpu, f_cpu), (p_gpu, f_gpu) = got["cpu"], got[str(cuda)]
+    for k in p_cpu:
+        assert float((p_cpu[k] - p_gpu[k]).abs().max()) < 1e-4, k
+    assert float((f_cpu - f_gpu).abs().max()) < 1e-4

@@ -51,6 +51,23 @@ def test_bits_and_randint_bit_identical(seed, shape):
 
 
 @pytest.mark.parametrize("seed", SEEDS)
+def test_row_draws_bit_identical(seed):
+    """fold_in_rows and randint_rows (one key per row, the batched
+    stage-1 window draws) against jax.random row by row."""
+    kj, kt = jax.random.PRNGKey(seed), rng.PRNGKey(seed)
+    data = [0, 1, 77, 2 ** 32 - 1, 5]
+    keys = rng.fold_in_rows(kt, torch.tensor(data))
+    sizes = [1, 7, 50, 2 ** 31 - 1, 3]
+    draws = rng.randint_rows(keys, 11, 0, torch.tensor(sizes))
+    for m, (d, n) in enumerate(zip(data, sizes)):
+        kjm = jax.random.fold_in(kj, d)
+        np.testing.assert_array_equal(_np(kjm), keys[m].numpy())
+        np.testing.assert_array_equal(
+            np.asarray(jax.random.randint(kjm, (11,), 0, n)),
+            draws[m].numpy())
+
+
+@pytest.mark.parametrize("seed", SEEDS)
 @pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (-0.3, 0.3), (-2.0, 5.5)])
 def test_uniform_identical(seed, lo, hi):
     got = rng.uniform(rng.PRNGKey(seed), (4096,), lo, hi,

@@ -23,6 +23,7 @@ from repro_torch.data import synthetic as TSYN
 from repro_torch.launch import train as TRAIN
 from repro_torch.models import cnn as TCNN
 from repro_torch.models import layers as TLAYERS
+from repro_torch.sim.fleet import FleetStore
 from repro_torch.sim.runtime import make_runtime
 
 # one intra-op thread: pytest-xdist runs several workers on the same
@@ -99,6 +100,14 @@ DEFAULT_DEVICE_CALLS = {
         "mnist", n_train=12, n_test=6),
     "make_runtime": lambda d: make_runtime(
         FLConfig(**KW), t_adapter("mnist", "cpu"), d[0].x, d[0].y, d[1]),
+    "make_runtime(vectorized)": lambda d: make_runtime(
+        FLConfig(**KW, runtime="vectorized"), t_adapter("mnist", "cpu"),
+        d[0].x, d[0].y, d[1]),
+    "make_runtime(device)": lambda d: make_runtime(
+        FLConfig(**KW, runtime="device"), t_adapter("mnist", "cpu"),
+        d[0].x, d[0].y, d[1]),
+    "FleetStore": lambda d: FleetStore(d[0].x, d[0].y, d[1],
+                                       FLConfig(**KW)),
     "init_energy": lambda d: TE.init_energy(FLConfig(**KW), rng.PRNGKey(0)),
     "make_round_step": lambda d: TRND.make_round_step(FLConfig(**KW)),
     "init_cnn": lambda d: TCNN.init_cnn(rng.PRNGKey(0), "mnist"),
@@ -149,7 +158,7 @@ def test_cli_defaults_match_jax_cli(monkeypatch):
                                    rtol=1e-5, atol=1e-5, err_msg=f)
 
 
-@pytest.mark.parametrize("flag", [["--runtime", "vectorized"],
+@pytest.mark.parametrize("flag", [["--runtime", "sharded"],
                                   ["--churn", "0.1"],
                                   ["--defense", "clip"],
                                   ["--watchdog", "on"],
