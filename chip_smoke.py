@@ -46,7 +46,30 @@
    feature, k-means, warm-up and per-round seconds for all three
    runtimes, and times the feature pass over the whole client axis
    against 4-wide chunks.
-8. Serving path at full width: qwen2-0.5b (24 layers, bf16, weights
+8. Scheme comparison path: the paper's four ``--scheme`` values
+   (``gradient_cluster_auction`` and its baselines
+   ``gradient_cluster_random``, ``weights_cluster_random`` and
+   ``random``) at the reference defaults for the paper's 30 rounds on
+   ``--runtime vectorized``, counts reset before and read after each (26
+   ``lloyd_step`` launches for a clustered scheme, none for ``random``),
+   each round held to the JAX package's winners (SCHEME_WINNERS); then
+   ``weights_cluster_random`` for 3 rounds on ``--runtime sequential``
+   (the per-client weight-delta loop), which must give the batched
+   pass's clusters; then ``--scheme-select fedcs`` and
+   ``longterm_auction`` for 3 rounds (SELECT_WINNERS).  Prints each
+   scheme's stage-1 seconds, seconds per round, final accuracy,
+   ``energy_std`` and mean ``vds_gap`` (the numbers behind the paper's
+   figures 3, 4 and 9).
+9. Selection path: ``--mode selection --clients 1000000 --rounds 100``
+   for each ``--scheme-select`` value (warm and cold rounds/s); then, for
+   those four and the three baseline ``--scheme`` values,
+   ``simulate_rounds`` at N = 1,000,000 and T = 10 with ``record_wins``
+   under ``torch.cuda.set_sync_debug_mode("error")`` (a host
+   synchronisation in the loop raises) held bit for bit to
+   ``simulate_rounds_reference`` (winners, residual, history, metrics),
+   and a warm 100-round ``simulate_rounds`` of each ``--scheme-select``
+   under the same mode.
+10. Serving path at full width: qwen2-0.5b (24 layers, bf16, weights
    from ``init_params(cfg, PRNGKey(0))``) with ``attn_impl="pallas"``:
    ``logits_fn`` prefill of 4,096 tokens, counts reset before and read
    after (24 flash_attention launches), held against the plain
@@ -57,8 +80,9 @@
 It prints one JSON line with the kernels' numbers and, last, the JSON
 status line.  ``--profile`` adds a torch.profiler pass before them:
 device time by kernel for the fleet-shape Lloyd step, for one more
-paper-path run on the sequential and on the vectorized runtime, for a
-warm prefill and for 32 decode steps, and each
+paper-path run on the sequential and on the vectorized runtime, for 20
+rounds of the selection loop at a million clients under each
+``--scheme-select``, for a warm prefill and for 32 decode steps, and each
 run's device-busy share of its wall time (it adds minutes, so the plain
 smoke run leaves it out).  Without a CUDA device, or run outside a
 checkout, it exits non-zero and prints no result.  Any failed check
@@ -104,6 +128,112 @@ MAIN_ARGS = ["--rounds", "3", "--quiet"]          # reference defaults else
 # port's CPU run and the JAX run to the same sets.
 REFERENCE_WINNERS = [[1, 35, 40], [12, 35, 36, 41, 49, 58, 60, 63],
                      [0, 1, 3, 19, 35, 36, 44, 58, 62]]
+# The clients the JAX package selects at the reference defaults for the
+# paper's 30 rounds under each --scheme, and for 3 rounds under the
+# registry's fedcs (at its default deadline of 1.5 fleet-mean round
+# times, where no client is predicted to make it, and at 2.5) and
+# longterm_auction, each run as python -m repro.launch.train --mode
+# paper --runtime sequential --scheme <s> (or --rounds 3 --scheme-select
+# <key>) on the CPU.  Winners depend on the clusters, energy, history
+# and scheme state, never on the trained params, so they hold on any
+# runtime and device.
+SCHEME_WINNERS = {
+    "gradient_cluster_auction": (
+        [[1, 35, 40], [12, 35, 36, 41, 49, 58, 60, 63], [0, 1, 3, 19, 35,
+        36, 44, 58, 62], [24, 31, 53, 57, 72, 79, 80, 85, 86, 98], [18,
+        21, 35, 36, 39, 52, 64, 67, 83, 90], [6, 11, 20, 23, 28, 32, 75,
+        84, 97, 99], [6, 9, 21, 25, 37, 40, 43, 64, 78, 92], [2, 5, 11,
+        27, 29, 48, 54, 56, 70, 93], [3, 5, 12, 26, 41, 44, 49, 57, 80,
+        88], [17, 30, 34, 38, 46, 65, 71, 73, 82, 89], [7, 15, 20, 22, 24,
+        51, 53, 68, 79, 96], [23, 31, 42, 60, 66, 67, 84, 85, 98, 99], [9,
+        28, 34, 45, 47, 51, 63, 70, 82, 86], [16, 18, 50, 55, 61, 62, 69,
+        74, 83, 87], [8, 10, 13, 14, 29, 72, 76, 77, 91, 95], [4, 22, 33,
+        46, 48, 50, 59, 75, 81, 97], [15, 19, 27, 30, 31, 42, 54, 56, 78,
+        93], [17, 21, 24, 25, 32, 39, 43, 66, 88, 90], [0, 1, 38, 47, 52,
+        64, 73, 85, 89, 96], [3, 4, 7, 26, 40, 49, 65, 68, 71, 92], [2,
+        11, 45, 53, 69, 80, 86, 87, 94, 98], [8, 10, 12, 14, 16, 33, 37,
+        61, 79, 95], [13, 20, 28, 55, 74, 76, 77, 82, 91, 99], [9, 18, 23,
+        44, 46, 57, 60, 62, 71, 75], [5, 6, 29, 50, 51, 58, 63, 67, 72,
+        84], [19, 25, 27, 32, 41, 48, 54, 56, 70, 83], [22, 30, 31, 34,
+        39, 65, 66, 78, 93, 97], [13, 15, 17, 42, 69, 76, 81, 88, 90, 94],
+        [0, 38, 43, 45, 47, 52, 61, 74, 89, 96], [7, 21, 24, 26, 40, 49,
+        68, 73, 85, 92]]),
+    "gradient_cluster_random": (
+        [[4, 12, 18, 43, 51, 65, 70, 77, 79, 86], [3, 5, 11, 20, 26, 37,
+        39, 52, 54, 58], [18, 35, 36, 41, 42, 49, 54, 60, 83, 87], [7, 23,
+        26, 30, 39, 41, 52, 54, 75, 88], [1, 26, 53, 57, 70, 72, 79, 84,
+        85, 88], [18, 21, 25, 27, 40, 43, 56, 62, 64, 99], [9, 18, 21, 25,
+        36, 37, 43, 44, 52, 60], [35, 36, 39, 40, 41, 43, 44, 58, 67, 92],
+        [12, 21, 28, 35, 37, 39, 40, 53, 54, 56], [14, 22, 35, 36, 40, 41,
+        49, 68, 73, 87], [19, 35, 36, 40, 41, 44, 58, 62, 63, 97], [3, 18,
+        25, 26, 39, 51, 52, 54, 67, 90], [11, 12, 36, 37, 60, 64, 65, 68,
+        93, 99], [5, 6, 7, 11, 20, 29, 38, 72, 83, 84], [3, 19, 24, 26,
+        31, 32, 35, 40, 48, 67], [12, 19, 35, 36, 41, 57, 60, 68, 73, 94],
+        [2, 6, 21, 35, 39, 40, 63, 64, 67, 98], [0, 3, 6, 12, 18, 25, 41,
+        44, 49, 67], [2, 11, 20, 26, 35, 37, 49, 54, 78, 83], [2, 21, 25,
+        27, 38, 40, 44, 49, 63, 96], [0, 5, 7, 19, 41, 53, 56, 58, 84,
+        92], [21, 35, 36, 39, 58, 60, 62, 63, 64, 67], [7, 35, 36, 38, 41,
+        59, 60, 63, 64, 92], [0, 12, 35, 36, 41, 49, 64, 67, 83, 98], [1,
+        4, 27, 35, 36, 40, 43, 49, 62, 88], [6, 9, 25, 37, 40, 41, 44, 52,
+        63, 98], [2, 6, 9, 11, 35, 53, 58, 67, 70, 84], [11, 15, 19, 32,
+        37, 56, 63, 70, 78, 84], [21, 29, 43, 46, 47, 48, 54, 60, 72, 75],
+        [1, 5, 20, 32, 37, 38, 49, 54, 56, 83]]),
+    "weights_cluster_random": (
+        [[8, 12, 18, 19, 24, 35, 41, 43, 86, 97], [1, 3, 35, 36, 37, 39,
+        52, 54, 58, 59], [3, 11, 18, 32, 35, 36, 37, 41, 49, 54], [35, 36,
+        39, 41, 43, 47, 54, 62, 88, 91], [4, 19, 57, 66, 70, 72, 83, 84,
+        85, 88], [11, 18, 21, 25, 27, 43, 49, 56, 62, 64], [9, 25, 27, 28,
+        36, 43, 52, 54, 60, 99], [6, 13, 35, 39, 40, 43, 44, 58, 67, 92],
+        [12, 18, 21, 35, 37, 39, 53, 54, 56, 83], [0, 3, 25, 32, 36, 37,
+        49, 58, 64, 73], [13, 19, 24, 28, 35, 36, 40, 62, 63, 97], [12,
+        35, 36, 39, 40, 43, 54, 58, 67, 74], [5, 11, 12, 36, 37, 43, 49,
+        60, 64, 98], [19, 35, 36, 38, 60, 61, 72, 83, 84, 97], [3, 19, 35,
+        36, 40, 42, 44, 58, 62, 67], [5, 6, 12, 24, 39, 57, 60, 73, 78,
+        83], [2, 14, 19, 27, 35, 36, 40, 63, 64, 88], [3, 12, 14, 35, 36,
+        41, 44, 47, 49, 58], [2, 20, 35, 45, 49, 54, 78, 83, 86, 97], [2,
+        35, 36, 40, 44, 49, 58, 63, 67, 76], [0, 3, 5, 7, 15, 19, 24, 56,
+        58, 92], [35, 36, 38, 39, 54, 60, 62, 63, 67, 73], [6, 18, 35, 37,
+        39, 45, 60, 63, 64, 92], [0, 12, 35, 36, 44, 47, 49, 58, 83, 94],
+        [1, 5, 6, 43, 44, 49, 52, 65, 67, 98], [6, 9, 25, 37, 41, 44, 52,
+        53, 63, 98], [2, 19, 21, 35, 36, 58, 63, 64, 67, 74], [0, 15, 19,
+        35, 36, 43, 47, 62, 78, 84], [5, 19, 37, 43, 54, 56, 58, 60, 72,
+        99], [5, 20, 32, 37, 49, 53, 54, 56, 83, 98]]),
+    "random": (
+        [[3, 4, 11, 16, 22, 33, 55, 68, 79, 89], [26, 30, 42, 52, 61, 81,
+        89, 90, 94, 97], [27, 38, 45, 49, 52, 63, 75, 79, 86, 88], [21,
+        25, 26, 38, 54, 65, 72, 80, 90, 99], [6, 7, 12, 14, 27, 30, 45,
+        49, 52, 99], [7, 23, 47, 53, 69, 73, 82, 85, 93, 94], [6, 22, 24,
+        27, 30, 40, 45, 53, 71, 91], [9, 14, 26, 28, 54, 68, 69, 77, 85,
+        92], [7, 16, 17, 22, 28, 44, 61, 64, 65, 94], [2, 7, 8, 19, 34,
+        48, 61, 68, 80, 87], [10, 45, 46, 59, 61, 63, 70, 71, 80, 93], [1,
+        24, 37, 53, 69, 91, 92, 94, 97, 98], [20, 30, 32, 63, 64, 71, 81,
+        83, 87, 95], [3, 32, 39, 58, 62, 74, 78, 79, 92, 93], [8, 15, 29,
+        44, 50, 51, 54, 80, 86, 91], [2, 22, 26, 29, 58, 65, 67, 70, 72,
+        85], [21, 26, 42, 58, 73, 83, 84, 85, 96, 98], [6, 25, 27, 46, 53,
+        57, 74, 88, 91, 93], [17, 19, 20, 29, 36, 56, 57, 61, 65, 67],
+        [16, 17, 26, 37, 68, 71, 75, 84, 89, 98], [6, 12, 18, 23, 61, 75,
+        86, 93, 96, 98], [10, 17, 21, 25, 46, 49, 75, 87, 97, 99], [12,
+        22, 27, 28, 37, 51, 55, 68, 87, 94], [7, 9, 17, 39, 41, 46, 55,
+        83, 85, 93], [5, 10, 14, 25, 29, 54, 57, 61, 69, 75], [3, 9, 10,
+        17, 18, 71, 74, 78, 86, 92], [13, 16, 23, 30, 31, 34, 35, 40, 62,
+        76], [1, 9, 20, 32, 47, 63, 74, 86, 95, 98], [13, 14, 17, 20, 26,
+        48, 57, 69, 71, 73], [15, 17, 29, 51, 53, 56, 62, 63, 79, 86]]),
+}
+SELECT_WINNERS = {
+    "fedcs": (
+        [[], [], []]),
+    "fedcs --fedcs-deadline 2.5": (
+        [[35, 40], [12, 35, 40, 49, 58, 83], [3, 35, 44, 49, 58, 60, 62]]),
+    "longterm_auction": (
+        [[1, 35, 40], [12, 35, 36, 41, 49, 58, 60, 63], [0, 1, 3, 19, 35,
+        36, 44, 58, 62]]),
+}
+PAPER_SCHEMES = tuple(SCHEME_WINNERS)
+# the selection path: --mode selection at a million clients
+SELECTION_CLIENTS = 1_000_000
+SELECTION_ARGS = ["--mode", "selection", "--clients", str(SELECTION_CLIENTS),
+                  "--rounds", "100", "--quiet"]
+SELECTION_CHECK_ROUNDS = 10
 # (label, B, S, H, hd, dtype, causal, window); "qwen2" is the shape
 # qwen2-0.5b's prefill of 4,096 tokens gives the kernel (14 heads after
 # the GQA expansion), "window" starcoder2-3b's sliding window at 8,192
@@ -141,6 +271,12 @@ BATCHED_RUNTIMES = ("vectorized", "device")
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def reset_counts(OPS) -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    for name in ("lloyd_step", "kmeans_assign", "flash_attention"):
+        getattr(OPS, name).launches = 0
 
 
 def median_ms(fn, reps: int = 20, host_ahead: bool = True) -> float:
@@ -409,8 +545,7 @@ def serving_path(OPS, cuda) -> int:
     # ---- prefill: logits_fn through the kernel, counts reset ----------
     toks = rng.randint(rng.PRNGKey(1), (1, PREFILL_LEN), 0, cfg.vocab_size,
                        cuda)
-    for name in ("lloyd_step", "kmeans_assign", "flash_attention"):
-        getattr(OPS, name).launches = 0
+    reset_counts(OPS)
     t = time.perf_counter()
     logits = MD.logits_fn(cfg, params, toks)
     torch.cuda.synchronize()
@@ -542,6 +677,40 @@ def profile_serving(cuda) -> None:
                   flush=True)
 
 
+def profile_selection() -> None:
+    """Device time by kernel, kernel launches a round and the busy share
+    of 20 warm rounds of the selection loop at SELECTION_CLIENTS under
+    each --scheme-select (torch.profiler, CUPTI)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import rng
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core import rounds as RND
+
+    for select in ("paper", "random", "fedcs", "longterm_auction"):
+        cfg = FLConfig(num_clients=SELECTION_CLIENTS, scheme_select=select,
+                       init_energy_mode="normal")
+        state = RND.synthetic_fleet(cfg, rng.PRNGKey(0), device="cuda")
+        RND.simulate_rounds(state, cfg, rng.PRNGKey(1), 5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            RND.simulate_rounds(state, cfg, rng.PRNGKey(1), 20)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rows = _kernel_rows(prof)
+        busy = sum(e.self_device_time_total for e in rows) / 1e6
+        print(f"profile selection {select} N={SELECTION_CLIENTS} 20 rounds: "
+              f"wall_s={wall!r} device_busy_s={busy!r} "
+              f"busy_share={busy / wall!r} launches_per_round="
+              f"{sum(e.count for e in rows) / 20!r}", flush=True)
+        for e in rows[:6]:
+            print(f"  {e.key[:60]} count={e.count} "
+                  f"device_ms={e.self_device_time_total / 1e3!r}",
+                  flush=True)
+
+
 def profile_pass(OPS, TRAIN) -> None:
     """Device time by kernel (torch.profiler, CUPTI) for the fleet-shape
     Lloyd step and for a main-path run; the busy share is the summed
@@ -623,8 +792,7 @@ def cohort_runtimes_path(OPS, TRAIN, obs, servers, seq_params):
           f"{time.perf_counter() - t!r} s", flush=True)
     got = {}
     for runtime in BATCHED_RUNTIMES:
-        for name in ("lloyd_step", "kmeans_assign", "flash_attention"):
-            getattr(OPS, name).launches = 0
+        reset_counts(OPS)
         obs.SPANS.clear()
         result = TRAIN.main(MAIN_ARGS + ["--runtime", runtime])
         torch.cuda.synchronize()
@@ -694,6 +862,157 @@ def feature_pass_widths(runtime, params) -> None:
           f"window={xb.shape[2]}: whole_axis_ms={ms_whole!r} "
           f"chunks_of_{w}_ms={ms_chunked!r} whole_axis_peak_bytes={peak} "
           f"max_abs_diff={diff!r}", flush=True)
+
+
+def scheme_comparison_path(OPS, TRAIN, obs, servers) -> None:
+    """The paper's four schemes for 30 rounds on the vectorized runtime,
+    the sequential weight-feature loop against the batched pass, and the
+    registry's fedcs and longterm_auction, each held to the JAX
+    package's winners."""
+    require(SCHEME_WINNERS["gradient_cluster_auction"][:3]
+            == REFERENCE_WINNERS, "SCHEME_WINNERS disagrees with "
+            "REFERENCE_WINNERS")
+    clusters = {}
+    for scheme in PAPER_SCHEMES:
+        reset_counts(OPS)
+        obs.SPANS.clear()
+        result = TRAIN.main(["--quiet", "--runtime", "vectorized",
+                             "--scheme", scheme])
+        torch.cuda.synchronize()
+        launches = OPS.lloyd_step.launches
+        want = 0 if scheme == "random" else 26
+        require(launches == want, f"{scheme}: stage 1 made {launches} "
+                f"lloyd_step launches, expected {want}")
+        require(OPS.kmeans_assign.launches == OPS.flash_attention.launches
+                == 0, f"{scheme}: launched a kernel it does not use")
+        require(len(result["selected"]) == 30, f"{scheme}: not 30 rounds")
+        bad = [t for t, (a, b) in enumerate(zip(result["selected"],
+                                                SCHEME_WINNERS[scheme]))
+               if a != b]
+        require(not bad, f"{scheme}: rounds {bad} select "
+                f"{[result['selected'][t] for t in bad[:3]]}, the JAX "
+                f"package selects "
+                f"{[SCHEME_WINNERS[scheme][t] for t in bad[:3]]}")
+        require(result["params_finite"] and all(
+            math.isfinite(a) for a in result["test_acc"]),
+            f"{scheme}: non-finite params or accuracy")
+        clusters[scheme] = servers[-1].state.clusters.clone()
+        stage1 = obs.SPANS["run/cluster"]
+        feats = obs.SPANS.get("cluster/features", 0.0)
+        print(f"scheme {scheme} (vectorized, 30 rounds): lloyd_step "
+              f"launches={launches} selected=SCHEME_WINNERS "
+              f"stage1_s={stage1!r} features_s={feats!r} "
+              f"s_per_round={(result['wall_s'] - stage1) / 30!r} "
+              f"final_test_acc={result['test_acc'][-1]!r} "
+              f"final_energy_std={result['energy_std'][-1]!r} "
+              f"mean_vds_gap={statistics.fmean(result['vds_gap'])!r}",
+              flush=True)
+    # the per-client weight-delta loop against the batched pass
+    reset_counts(OPS)
+    obs.SPANS.clear()
+    result = TRAIN.main(["--quiet", "--rounds", "3", "--scheme",
+                         "weights_cluster_random"])
+    torch.cuda.synchronize()
+    srv = servers[-1]
+    require(srv.runtime.name == "sequential", "not the sequential runtime")
+    require(OPS.lloyd_step.launches == 26,
+            f"sequential weights: {OPS.lloyd_step.launches} launches")
+    require(torch.equal(srv.state.clusters,
+                        clusters["weights_cluster_random"]),
+            "the sequential weight-feature loop and the batched pass give "
+            "other clusters")
+    require(result["selected"] == SCHEME_WINNERS["weights_cluster_random"]
+            [:3], f"sequential weights: selected {result['selected']}")
+    print(f"scheme weights_cluster_random (sequential, 3 rounds): "
+          f"clusters equal the batched pass's, stage1_s="
+          f"{obs.SPANS['run/cluster']!r} features_s="
+          f"{obs.SPANS['cluster/features']!r}", flush=True)
+    for select, want in SELECT_WINNERS.items():
+        reset_counts(OPS)
+        obs.SPANS.clear()
+        result = TRAIN.main(["--quiet", "--rounds", "3", "--runtime",
+                             "vectorized", "--scheme-select",
+                             *select.split()])
+        torch.cuda.synchronize()
+        require(OPS.lloyd_step.launches == 26,
+                f"{select}: {OPS.lloyd_step.launches} launches")
+        require(result["selected"] == want, f"--scheme-select {select}: "
+                f"selected {result['selected']}, the JAX package {want}")
+        metrics = servers[-1].logs[-1].scheme_metrics
+        print(f"scheme-select {select} (vectorized, 3 rounds): selected="
+              f"SELECT_WINNERS s_per_round="
+              f"{(result['wall_s'] - obs.SPANS['run/cluster']) / 3!r} "
+              f"last round {metrics}", flush=True)
+
+
+def selection_path(OPS, TRAIN, cuda) -> None:
+    """``--mode selection`` at a million clients for every scheme: the
+    CLI's rates, the loop bit for bit against its per-round reference,
+    and the loop with no host synchronisation."""
+    import numpy as np
+
+    from repro_torch import rng
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core import rounds as RND
+
+    cases = [("gradient_cluster_auction", s) for s in
+             ("paper", "random", "fedcs", "longterm_auction")]
+    cases += [(s, "paper") for s in PAPER_SCHEMES[1:]]
+    for scheme, select in cases:
+        cli = scheme == "gradient_cluster_auction"
+        if cli:
+            reset_counts(OPS)
+            out = TRAIN.main(SELECTION_ARGS + ["--scheme-select", select])
+            require(OPS.lloyd_step.launches == OPS.kmeans_assign.launches
+                    == OPS.flash_attention.launches == 0,
+                    "the selection path launched a kernel")
+            require(len(out["num_winners"]) == 100
+                    and all(math.isfinite(v) for v in out["energy_std"])
+                    and sum(out["num_winners"]) > 0,
+                    f"selection {select}: bad output")
+        cfg = FLConfig(num_clients=SELECTION_CLIENTS, scheme=scheme,
+                       scheme_select=select, init_energy_mode="normal")
+        key = rng.PRNGKey(0)
+        state = RND.synthetic_fleet(cfg, key, device=cuda)
+        kr = rng.fold_in(key, 1)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fs, m, wins = RND.simulate_rounds(state, cfg, kr,
+                                              SELECTION_CHECK_ROUNDS,
+                                              record_wins=True)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        rf, rm, rwins = RND.simulate_rounds_reference(
+            state, cfg, kr, SELECTION_CHECK_ROUNDS, record_wins=True)
+        name = f"{scheme}/{select}"
+        require(np.array_equal(wins.cpu().numpy(), rwins),
+                f"selection {name}: winners differ from the reference")
+        require(torch.equal(fs.residual, rf.residual)
+                and torch.equal(fs.history, rf.history),
+                f"selection {name}: residual or history differ")
+        require(sorted(m) == sorted(rm) and all(
+            np.array_equal(m[k].cpu().numpy(), rm[k]) for k in m),
+            f"selection {name}: metrics differ from the reference")
+        line = (f"selection {name} N={SELECTION_CLIENTS}: "
+                f"T={SELECTION_CHECK_ROUNDS} "
+                f"bit-identical to the reference, no host sync, "
+                f"winners={int(wins.sum())}")
+        if cli:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                RND.simulate_rounds(state, cfg, kr, 100)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            line += (f"; CLI T=100 warm rounds_per_s={out['rounds_per_s']!r}"
+                     f" cold rounds_per_s={100 / out['wall_s']!r} "
+                     f"compile_s={out['compile_s']!r}; 100 rounds under "
+                     f"the sync check {time.perf_counter() - t!r} s "
+                     f"final_energy_std={out['energy_std'][-1]!r}")
+        print(line, flush=True)
 
 
 def toolkit(BUILD, name: str) -> str:
@@ -818,8 +1137,7 @@ def main() -> int:
     # ---- main path -----------------------------------------------------
     phase("paper path", t0)
     servers = record_servers(TRAIN)
-    for name in ("lloyd_step", "kmeans_assign", "flash_attention"):
-        getattr(OPS, name).launches = 0
+    reset_counts(OPS)
     obs.SPANS.clear()
     result = TRAIN.main(MAIN_ARGS)
     torch.cuda.synchronize()
@@ -865,8 +1183,7 @@ def main() -> int:
 
     # ---- stage-1 assign path ------------------------------------------
     phase("stage-1 assign path", t0)
-    for name in ("lloyd_step", "kmeans_assign", "flash_attention"):
-        getattr(OPS, name).launches = 0
+    reset_counts(OPS)
     obs.SPANS.clear()
     hooked = TRAIN.main(MAIN_ARGS,
                         assign_fn=lambda x, c: OPS.kmeans_assign(x, c)[0])
@@ -890,6 +1207,14 @@ def main() -> int:
     vec = cohort_runtimes_path(OPS, TRAIN, obs, servers, seq_params)
     feature_pass_widths(vec.runtime, vec.params)
 
+    # ---- scheme comparison path -----------------------------------------
+    phase("scheme comparison path", t0)
+    scheme_comparison_path(OPS, TRAIN, obs, servers)
+
+    # ---- selection path -------------------------------------------------
+    phase("selection path", t0)
+    selection_path(OPS, TRAIN, cuda)
+
     # ---- serving path --------------------------------------------------
     phase("serving path", t0)
     flash_launches = serving_path(OPS, cuda)
@@ -897,6 +1222,7 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         phase("profile", t0)
         profile_pass(OPS, TRAIN)
+        profile_selection()
         profile_serving(cuda)
 
     phase("done", t0)

@@ -7,11 +7,18 @@ auction).  Winner ranking reproduces the reference's sort order exactly:
 ``jnp.lexsort`` becomes chained stable sorts from the least significant
 key, and ``lax.top_k``'s lower-index-first tie rule becomes a stable
 ascending argsort (``torch.topk`` promises no order on ties).
+
+Nothing here copies from the host to the device or reads a device value
+back (constants enter as Python numbers, segment sizes come from
+``index_add_`` rather than ``bincount``, masks are written with index
+tensors rather than boolean indexing), so a round of the control plane
+runs without a host synchronisation.
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import FLConfig
@@ -39,8 +46,7 @@ def resource_cost(residual: torch.Tensor, e_cp: torch.Tensor,
     client can afford the round, else +inf (eq 12; the fraction scale is
     recorded in DESIGN.md)."""
     margin = (residual - e_cp) / 100.0
-    cr = torch.pow(torch.tensor(cfg.phi, dtype=torch.float32,
-                                device=margin.device), margin)
+    cr = torch.pow(float(np.float32(cfg.phi)), margin)
     return torch.where(margin > 0, cr, torch.full_like(cr, INF))
 
 
@@ -49,11 +55,10 @@ def service_cost(local_sizes: torch.Tensor, history: torch.Tensor,
     """Cs_{i,t} = chi * vartheta^Ns + zeta * (log_a(co + a) - 1) (eq 13,
     with the intended sign; ``cfg.history_verbatim`` restores the printed
     one — see DESIGN.md §Paper-deviations)."""
-    dev = local_sizes.device
-    sample_term = torch.pow(torch.tensor(cfg.vartheta, dtype=torch.float32,
-                                         device=dev), local_sizes.float())
-    log_a = torch.log(torch.tensor(cfg.log_a, dtype=torch.float32,
-                                   device=dev))
+    sample_term = torch.pow(float(np.float32(cfg.vartheta)),
+                            local_sizes.float())
+    # float32 log of the constant, taken on the host
+    log_a = float(torch.log(torch.tensor(cfg.log_a, dtype=torch.float32)))
     hist = torch.log(history.float() + cfg.log_a) / log_a
     sign = -1.0 if cfg.history_verbatim else 1.0
     return cfg.chi * sample_term + cfg.zeta * sign * (hist - 1.0)
@@ -77,9 +82,13 @@ def cost(residual, local_sizes, history, cfg: FLConfig) -> torch.Tensor:
 def optimal_bid(c: torch.Tensor, n_j, k_j) -> torch.Tensor:
     """b* = 1/(N_j-K_j+1) + (N_j-K_j)/(N_j-K_j+1) * c — the symmetric
     Nash-equilibrium bid of Theorem 2 (n_j/k_j scalars or per client)."""
-    n_j = torch.as_tensor(n_j, dtype=torch.float32, device=c.device)
-    k_j = torch.as_tensor(k_j, dtype=torch.float32, device=c.device)
-    d = torch.clamp(n_j - k_j, min=0.0)
+    def f32(v):     # a scalar is filled on the device, not copied there
+        if isinstance(v, torch.Tensor):
+            return v.to(device=c.device, dtype=torch.float32)
+        return torch.full((), float(v), dtype=torch.float32,
+                          device=c.device)
+
+    d = torch.clamp(f32(n_j) - f32(k_j), min=0.0)
     bid = 1.0 / (d + 1.0) + d / (d + 1.0) * c
     return torch.where(c >= INF, torch.full_like(bid, INF), bid)
 
@@ -121,7 +130,9 @@ def segment_ranks(order: torch.Tensor, clusters: torch.Tensor,
                   num_clusters: int) -> torch.Tensor:
     """Within-cluster rank of each position of a cluster-major sort."""
     cl = clusters.long()
-    sizes = torch.bincount(cl, minlength=num_clusters)
+    sizes = torch.zeros(num_clusters, dtype=torch.int64,
+                        device=cl.device).index_add_(0, cl,
+                                                     torch.ones_like(cl))
     starts = torch.cumsum(sizes, 0) - sizes
     return torch.arange(order.shape[0], device=order.device) \
         - starts[cl[order]]
@@ -138,7 +149,7 @@ def select_lowest_bids(bids: torch.Tensor, eligible: torch.Tensor, k: int,
         # lax.top_k(-key) order: lowest key first, lower index on ties
         idx = torch.sort(key, stable=True).indices[:min(k, n)]
         win = torch.zeros(n, dtype=torch.bool, device=bids.device)
-        return win.index_fill_(0, idx[key[idx] < INF], True)
+        return win.index_put_((idx,), key[idx] < INF)
     order = lexsort((torch.clamp(tie_break, 0.0, 1.0), key))
     ranks = torch.empty_like(order)
     ranks[order] = torch.arange(n, device=bids.device)

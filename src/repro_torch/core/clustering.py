@@ -5,6 +5,10 @@
      *initial* global model over the draws;
   2. the server k-means-clusters the gradient features into J groups.
 
+The Wang et al. baseline (``weights_cluster_random``) clusters by another
+feature: each client's flat model delta after one epoch of local SGD
+(``feature_kind="weights"``, with the server's ``local_steps_fn``).
+
 Features wider than ``8 * cluster_feature_dim`` are JL-projected in
 column blocks first (the CNN-MNIST gradient has 21,840 entries).  K-means
 is k-means++ seeding plus Lloyd's algorithm over ``restarts`` runs that
@@ -114,7 +118,7 @@ def _kmeanspp_init_scan(features, k, key):
         key, kp = rng.split(key)
         p = dmin / torch.clamp(dmin.sum(), min=1e-30)
         cent = cent.clone()
-        cent[i] = features[rng.choice(kp, n, p)]
+        cent[i] = features[rng.choice(kp, n, p=p)]
     return cent
 
 
@@ -131,7 +135,7 @@ def _kmeanspp_init(features, k, key):
     for i in range(1, k):
         key, kp = rng.split(key)
         p = dmin / torch.clamp(dmin.sum(), min=1e-30)
-        cnew = features[rng.choice(kp, n, p)]
+        cnew = features[rng.choice(kp, n, p=p)]
         cent[i] = cnew
         dmin = torch.minimum(dmin, ((features - cnew[None]) ** 2).sum(-1))
     return cent
@@ -216,28 +220,38 @@ def kmeans_reference(features: torch.Tensor, k: int, key, iters: int = 25,
 
 def cluster_clients(grad_fn: Callable, params, client_data, cfg: FLConfig,
                     key, feature_kind: str = "gradient",
+                    local_steps_fn: Optional[Callable] = None,
                     assign_fn: Optional[Callable] = None,
                     precomputed_feats: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Cluster all clients.  client_data: list of (x, y) tensors per
-    client.  ``feature_kind='gradient'`` is the paper's scheme; the
-    weight-delta baseline is not ported yet (ROADMAP.md, queue 1).
-    ``precomputed_feats`` (N, D) bypasses the per-client feature loop
-    (``client_data`` is then unused);
-    ``assign_fn`` overrides k-means' assignment (see :func:`kmeans`).
-    Returns (labels (N,), centroids, features)."""
-    if feature_kind != "gradient":
-        raise NotImplementedError(
-            f"feature_kind={feature_kind!r} is not ported yet (ROADMAP.md, "
-            "queue 1: the paper's baseline schemes)")
+    client.  ``feature_kind``:
+
+      * ``'gradient'`` — the paper's scheme (sample window + T0 mean
+        gradients);
+      * ``'weights'`` — the Wang et al. baseline: the flat local model
+        delta after one epoch of SGD, ``local_steps_fn(params, x, y,
+        key)``.
+
+    Client i's feature reads ``fold_in(key, i)``.  ``precomputed_feats``
+    (N, D) bypasses the per-client feature loop (``client_data`` is then
+    unused); ``assign_fn`` overrides k-means' assignment (see
+    :func:`kmeans`).  Returns (labels (N,), centroids, features)."""
+    if feature_kind not in ("gradient", "weights"):
+        raise ValueError(f"unknown feature_kind={feature_kind!r}")
     if precomputed_feats is not None:
         feats = precomputed_feats
     else:
         with obs.span("cluster/features"):
-            feats = torch.stack([
-                client_gradient_feature(grad_fn, params, x, y, x.shape[0],
-                                        cfg, rng.fold_in(key, i))
-                for i, (x, y) in enumerate(client_data)])
+            feats = []
+            for i, (x, y) in enumerate(client_data):
+                ki = rng.fold_in(key, i)
+                feats.append(
+                    client_gradient_feature(grad_fn, params, x, y,
+                                            x.shape[0], cfg, ki)
+                    if feature_kind == "gradient"
+                    else local_steps_fn(params, x, y, ki))
+            feats = torch.stack(feats)
     if feats.shape[1] > cfg.cluster_feature_dim * 8:
         with obs.span("cluster/project"):
             feats = project_features_blocked(rng.PRNGKey(1234), feats,

@@ -1,7 +1,10 @@
 """Federated server: the full Algorithm 1 loop (the synchronous,
-undefended, dynamics-free path).
+undefended, dynamics-free path) for every ``cfg.scheme`` and every
+``cfg.scheme_select`` of the registry.
 
-Stage 1  (once)    : gradient clustering of all clients.
+Stage 1  (once)    : clustering of all clients by their initial gradients
+                      (``weights_cluster_random``: by one-epoch weight
+                      deltas; ``random``: none).
 Stage 2  (per round): cost -> Nash bids -> s_min threshold -> per-cluster
                       winners, rewards, energy/history update and round
                       metrics in one round step (repro_torch.core.rounds).
@@ -11,14 +14,16 @@ Stage 3  (per round): winners run I local epochs, the server aggregates
 The round loop fetches only the winner mask every round (stage 3's
 host-seeded shuffles need it); the round metrics and the eval pair stay
 on the device in a pending buffer and are fetched in one batched copy at
-logging boundaries.  Fleet dynamics, the defended aggregation path, the
-divergence watchdog and checkpoints are not ported yet (ROADMAP.md,
-queue 1): a config that would need them raises ``NotImplementedError``
-instead of silently running the plain path.
+logging boundaries, with the scheme's own round scalars (FedCS's
+predicted latency, the long-term auction's budget ledger), which each
+RoundLog keeps in ``scheme_metrics``.  Fleet dynamics, the defended
+aggregation path, the divergence watchdog and checkpoints are not ported
+yet (ROADMAP.md, queue 1): a config that would need them raises
+``NotImplementedError`` instead of silently running the plain path.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -35,7 +40,15 @@ from repro_torch.core.adapters import ModelAdapter
 from repro_torch.core.virtual_dataset import client_count_histograms
 from repro_torch.data.partition import global_histogram
 from repro_torch.device import resolve_device
+from repro_torch.optim import apply_updates, sgd
 from repro_torch.sim.runtime import make_runtime
+
+# round scalars the scheme zoo adds (fairness_hist_std from every scheme,
+# the budget ledger from longterm_auction, the latency ones from fedcs),
+# fetched with the round's other metrics
+SCHEME_METRIC_KEYS = ("fairness_hist_std", "budget_spent",
+                      "budget_remaining", "budget_queue",
+                      "pred_latency_mean", "num_feasible")
 
 
 @dataclass
@@ -50,6 +63,8 @@ class RoundLog:
     client_reward_sum: float
     vds_gap: float
     eval_skipped: bool = False
+    # the SCHEME_METRIC_KEYS the round's scheme emits
+    scheme_metrics: Dict[str, float] = field(default_factory=dict)
 
 
 @dataclass
@@ -75,7 +90,6 @@ def check_supported(cfg: FLConfig) -> None:
     if unported:
         raise NotImplementedError(
             "not ported yet (ROADMAP.md, queue 1): " + ", ".join(unported))
-    SEL._check_scheme(cfg)
 
 
 class FederatedServer:
@@ -101,7 +115,7 @@ class FederatedServer:
             history=torch.zeros(n, dtype=torch.int32, device=self.device),
             local_sizes=torch.tensor([c.size for c in clients],
                                      dtype=torch.int32, device=self.device),
-            scheme_state=SCH.init_scheme_state(cfg),
+            scheme_state=SCH.init_scheme_state(cfg, self.device),
         )
         self.global_hist = global_histogram(y, cfg.num_classes)
         self.client_labels = [y[c.train_idx] for c in clients]
@@ -123,21 +137,42 @@ class FederatedServer:
         return k
 
     def cluster(self) -> None:
-        """Stage 1: cluster clients by their mean initial gradients.
+        """Stage 1: cluster clients by the scheme's feature (none for
+        ``random``, which returns before drawing a key, so the round keys
+        stay the JAX package's).
 
         K-means runs through the fused Lloyd step unless ``assign_fn``
         (for example ``ops.kmeans_assign``'s labels) overrides the
         assignment."""
+        cfg = self.cfg
+        if cfg.scheme == "random":
+            return
+        feature_kind = ("weights" if cfg.scheme == "weights_cluster_random"
+                        else "gradient")
         key = self._next_key()
         # the batched runtimes compute the features in one pass; None
         # means the per-client loop of cluster_clients
-        feats = self.runtime.cluster_features(self.params, key, "gradient")
+        feats = self.runtime.cluster_features(self.params, key, feature_kind)
         data = ([self.runtime.local_data(i) for i in range(len(self.clients))]
                 if feats is None else None)
         labels, _, _ = CL.cluster_clients(
-            self.adapter.grad, self.params, data, self.cfg, key,
+            self.adapter.grad, self.params, data, cfg, key,
+            feature_kind=feature_kind, local_steps_fn=self._weight_delta,
             assign_fn=self.assign_fn, precomputed_feats=feats)
         self.state.clusters = labels.to(torch.int32)
+
+    def _weight_delta(self, params, x, y, key) -> torch.Tensor:
+        """The Wang et al. feature: the flat model delta after one
+        in-order epoch of plain SGD at batch min(32, n), the tail batch
+        dropped, leaves in the JAX package's order."""
+        init, upd = sgd(self.cfg.lr)
+        opt, p = init(params), params
+        bs = min(32, x.shape[0])
+        for i in range(0, x.shape[0] - bs + 1, bs):
+            g = self.adapter.grad(p, {"x": x[i:i + bs], "y": y[i:i + bs]})
+            u, opt = upd(g, opt, p)
+            p = apply_updates(p, u)
+        return CL.flatten_tree({k: p[k] - params[k] for k in p})
 
     def local_train(self, client_idx: int, global_params):
         return self.runtime.train_client(
@@ -196,7 +231,9 @@ class FederatedServer:
                 test_loss=loss, energy_std=m["energy_std"],
                 mean_bid=m["mean_bid"], server_reward=m["server_reward"],
                 client_reward_sum=m["client_reward_sum"],
-                vds_gap=m["vds_gap"], eval_skipped=skipped))
+                vds_gap=m["vds_gap"], eval_skipped=skipped,
+                scheme_metrics={k: m[k] for k in SCHEME_METRIC_KEYS
+                                if k in m}))
         self._pending.clear()
 
     def run_round(self, t: int) -> RoundLog:

@@ -1,20 +1,36 @@
-"""FL training entry point of the port: ``--mode paper``.
+"""FL training entry point of the port: ``--mode paper`` and ``--mode
+selection``.
 
-The paper-faithful simulation: N edge clients with CNNs on a synthetic
-non-IID/imbalanced image dataset, gradient clustering + per-cluster
-auction selection, FedAvg/FedProx aggregation and energy accounting, on
-the ``sequential``, ``vectorized`` or ``device`` runtime (``sharded``
-raises ``NotImplementedError``).  It takes the JAX CLI's flags with the
-same defaults (``python -m repro.launch.train``), plus ``--device``:
+  * ``--mode paper``: the paper-faithful simulation — N edge clients with
+    CNNs on a synthetic non-IID/imbalanced image dataset, clustering and
+    per-cluster selection under any ``--scheme`` (the paper's auction and
+    its three baselines) and any ``--scheme-select`` of the registry,
+    FedAvg/FedProx aggregation and energy accounting, on the
+    ``sequential``, ``vectorized`` or ``device`` runtime (``sharded``
+    raises ``NotImplementedError``).
+  * ``--mode selection``: the selection-only simulation — the per-round
+    auction and energy dynamics without training, over a synthetic fleet
+    (``core/rounds.simulate_rounds``), at up to a million clients.  It
+    runs twice: ``rounds_per_s`` is the second (warm) run's rate, and
+    ``compile_s`` the first run's seconds less the second's.  Eager
+    PyTorch compiles nothing, so here that is the first use's overhead
+    (kernel loading, allocator growth); ``--no-warm-rerun`` skips the
+    second run and reports the first.
+
+It takes the JAX CLI's flags with the same defaults (``python -m
+repro.launch.train``), plus ``--device``:
 
   python -m repro_torch.launch.train --mode paper              # on cuda
   python -m repro_torch.launch.train --mode paper --device cpu
   python -m repro_torch.launch.train --mode paper --runtime device
+  python -m repro_torch.launch.train --mode paper --scheme random
+  python -m repro_torch.launch.train --mode selection --clients 1000000
 
 The run is on the GPU unless ``--device cpu`` is given; ``cuda`` with no
 GPU raises.  TF32 is switched off for matmuls and cuDNN, so float32 stays
 float32.  A flag whose feature is not ported yet is still parsed, and a
-non-default value raises ``NotImplementedError`` (ROADMAP.md, queue 1).
+non-default value raises ``NotImplementedError`` (ROADMAP.md, queue 1),
+as does ``--mode transformer``.
 """
 from __future__ import annotations
 
@@ -26,8 +42,9 @@ from typing import List, Optional
 
 import torch
 
-from repro_torch import obs
+from repro_torch import obs, rng
 from repro_torch.configs.base import FLConfig
+from repro_torch.core import rounds as RND
 from repro_torch.core.adapters import cnn_adapter
 from repro_torch.core.server import FederatedServer
 from repro_torch.data.partition import partition_clients
@@ -36,12 +53,11 @@ from repro_torch.device import resolve_device
 
 # flags of the JAX CLI whose features the port does not have yet
 UNPORTED_FLAGS = (
-    "arch", "fedcs_deadline", "cohort_devices", "churn", "deadline",
-    "straggler_profile", "aggregation", "buffer_goal", "buffer_timeout",
-    "adversary_frac", "attack", "attack_scale", "defense", "defense_mode",
-    "reputation_mode", "watchdog", "watchdog_ring", "checkpoint_every",
-    "checkpoint_path", "resume", "no_warm_rerun", "log_jsonl", "log_csv",
-    "profile_dir", "audit_sync")
+    "arch", "cohort_devices", "churn", "deadline", "aggregation",
+    "buffer_goal", "buffer_timeout", "adversary_frac", "attack",
+    "attack_scale", "defense", "defense_mode", "reputation_mode",
+    "watchdog", "watchdog_ring", "checkpoint_every", "checkpoint_path",
+    "resume", "log_jsonl", "log_csv", "profile_dir", "audit_sync")
 
 
 def set_float32_precision() -> None:
@@ -56,9 +72,11 @@ def run_paper(args, device: torch.device, assign_fn=None) -> dict:
         select_ratio=args.select_ratio, rounds=args.rounds,
         local_epochs=args.local_epochs, lr=args.lr,
         non_iid_level=args.nu, scheme=args.scheme,
-        scheme_select=args.scheme_select, aggregator=args.aggregator,
+        scheme_select=args.scheme_select,
+        fedcs_deadline=args.fedcs_deadline, aggregator=args.aggregator,
         init_energy_mode=args.energy_mode, runtime=args.runtime,
-        eval_every=args.eval_every, seed=args.seed)
+        eval_every=args.eval_every, seed=args.seed,
+        straggler_profile=args.straggler_profile)
     train, test = make_image_dataset(args.dataset, n_train=args.pool,
                                      n_test=args.pool // 6, seed=args.seed,
                                      device=device)
@@ -89,6 +107,64 @@ def run_paper(args, device: torch.device, assign_fn=None) -> dict:
                              for v in srv.params.values()),
         "wall_s": time.time() - t0,
     }
+
+
+def run_selection(args, device: torch.device) -> dict:
+    """Selection-only round dynamics at scale: every round's metrics stay
+    on the device and are fetched in one copy after the run."""
+    cfg = FLConfig(
+        num_clients=args.clients, num_clusters=args.clusters,
+        select_ratio=args.select_ratio, rounds=args.rounds,
+        scheme=args.scheme, scheme_select=args.scheme_select,
+        fedcs_deadline=args.fedcs_deadline,
+        init_energy_mode=args.energy_mode, seed=args.seed)
+    key = rng.PRNGKey(args.seed)
+    state = RND.synthetic_fleet(cfg, key, device=device)
+    kr = rng.fold_in(key, 1)
+    t0 = time.time()
+    with obs.span("selection/cold"):
+        final, metrics, _ = RND.simulate_rounds(state, cfg, kr, args.rounds)
+        names = list(metrics)
+        # one device-to-host copy for all T rounds (int metrics are exact
+        # in float64)
+        host = (torch.stack([metrics[k].double() for k in names]).cpu()
+                .numpy() if names else None)
+        metrics = {k: host[i] for i, k in enumerate(names)}
+    cold = time.time() - t0
+    if args.no_warm_rerun:
+        warm, compile_s = cold, None
+    else:
+        t1 = time.time()
+        with obs.span("selection/warm"):
+            RND.simulate_rounds(state, cfg, kr, args.rounds)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        warm = time.time() - t1
+        compile_s = max(cold - warm, 0.0)
+    out = {
+        "mode": "selection", "scheme": args.scheme,
+        "scheme_select": args.scheme_select,
+        "clients": args.clients, "clusters": args.clusters,
+        "device": str(device),
+        "rounds": list(range(args.rounds)),
+        "energy_std": [float(v) for v in metrics["energy_std"]],
+        "mean_bid": [float(v) for v in metrics["mean_bid"]],
+        "server_reward": [float(v) for v in metrics["server_reward"]],
+        "client_reward_sum": [float(v)
+                              for v in metrics["client_reward_sum"]],
+        "num_winners": [int(v) for v in metrics["num_winners"]],
+        "final_energy_mean": float(final.residual.mean()),
+        "rounds_per_s": args.rounds / warm,
+        "compile_s": compile_s,
+        # one simulation, the first use included (the warm re-run is not)
+        "wall_s": cold,
+    }
+    timing = "incl. first use" if compile_s is None \
+        else f"warm; compile={compile_s:.2f}s"
+    obs.log(f"selection-only: N={args.clients} T={args.rounds} "
+            f"{out['rounds_per_s']:.1f} rounds/s ({timing}) "
+            f"final_energy_std={out['energy_std'][-1]:.3f}", always=True)
+    return out
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -164,9 +240,9 @@ def main(argv: Optional[List[str]] = None, *, assign_fn=None) -> dict:
     ``assign_fn`` does."""
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.mode != "paper":
+    if args.mode == "transformer":
         raise NotImplementedError(
-            f"--mode {args.mode} is not ported yet (ROADMAP.md, queue 1)")
+            "--mode transformer is not ported yet (ROADMAP.md, queue 1)")
     for dest in UNPORTED_FLAGS:
         if getattr(args, dest) != ap.get_default(dest):
             raise NotImplementedError(
@@ -175,15 +251,17 @@ def main(argv: Optional[List[str]] = None, *, assign_fn=None) -> dict:
     set_float32_precision()
     device = resolve_device(args.device)
     obs.configure(quiet=args.quiet)
-    result = run_paper(args, device, assign_fn)
+    result = (run_selection(args, device) if args.mode == "selection"
+              else run_paper(args, device, assign_fn))
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)
         obs.log(f"wrote {args.out}", always=True)
-    obs.log(f"final acc={result['test_acc'][-1]:.3f} "
-            f"energy_std={result['energy_std'][-1]:.3f} "
-            f"wall={result['wall_s']:.0f}s", always=True)
+    if result.get("test_acc"):
+        obs.log(f"final acc={result['test_acc'][-1]:.3f} "
+                f"energy_std={result['energy_std'][-1]:.3f} "
+                f"wall={result['wall_s']:.0f}s", always=True)
     return result
 
 

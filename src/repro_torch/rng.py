@@ -20,13 +20,21 @@ Float draws follow ``jax/_src/random.py`` operation for operation
 ``max(min, .)``); ``normal`` goes through XLA's single-precision erfinv
 polynomial so the values agree to a few ulps.  Where XLA fuses a multiply
 and an add into one FMA, the port rounds once too (``_fma``), so
-``uniform`` is bit-identical.
+``uniform`` is bit-identical.  ``permutation`` and ``choice`` without
+replacement run JAX's sort-based shuffle: rounds of fresh 32-bit keys,
+each a stable sort.
+
+A draw copies nothing from the host to its device: bounds given as
+Python numbers stay Python numbers (rounded to float32 on the host where
+JAX rounds them), so the selection-only round loop
+(``core/rounds.simulate_rounds``) runs with no host synchronisation.
 """
 from __future__ import annotations
 
 import math
 from typing import Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
@@ -41,30 +49,37 @@ def _shape(shape: Shape) -> Tuple[int, ...]:
                                                               for s in shape)
 
 
-def _rotl(x: torch.Tensor, d: int) -> torch.Tensor:
-    return ((x << d) | (x >> (32 - d))) & _MASK
-
-
 def threefry2x32(k1: int, k2: int, x1: torch.Tensor, x2: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The Threefry-2x32 hash (20 rounds) of counter words ``(x1, x2)``
     under key ``(k1, k2)``; all words are uint32 values in int64 tensors."""
     ks = (k1 & _MASK, k2 & _MASK, (k1 ^ k2 ^ 0x1BD11BDA) & _MASK)
-    a = (x1 + ks[0]) & _MASK
-    b = (x2 + ks[1]) & _MASK
+    # fresh full-shape words, then every step in place (the hash is a
+    # hundred elementwise ops; allocating each was most of its time)
+    a, b = torch.broadcast_tensors((x1 + ks[0]) & _MASK,
+                                   (x2 + ks[1]) & _MASK)
+    a, b = a.contiguous(), b.contiguous()
+    t = torch.empty_like(b)
     for step in range(5):
         for r in _ROT[step % 2]:
-            a = (a + b) & _MASK
-            b = _rotl(b, r) ^ a
-        a = (a + ks[(step + 1) % 3]) & _MASK
-        b = (b + ks[(step + 2) % 3] + step + 1) & _MASK
+            a.add_(b).bitwise_and_(_MASK)
+            torch.bitwise_left_shift(b, r, out=t)       # b = rotl(b) ^ a
+            b.bitwise_right_shift_(32 - r).bitwise_or_(t)
+            b.bitwise_and_(_MASK).bitwise_xor_(a)
+        a.add_(ks[(step + 1) % 3]).bitwise_and_(_MASK)
+        b.add_(ks[(step + 2) % 3] + step + 1).bitwise_and_(_MASK)
     return a, b
 
 
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+def _f64(v):
+    return v.double() if isinstance(v, torch.Tensor) else v
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
     """float32 ``a * b + c`` with one rounding, as XLA's CPU backend fuses
-    it (the float32 product is exact in float64)."""
-    return (a.double() * b.double() + c.double()).float()
+    it (the float32 product is exact in float64); ``b`` and ``c`` may be
+    Python floats that hold float32 values."""
+    return (a.double() * _f64(b) + _f64(c)).float()
 
 
 def _key_words(key: torch.Tensor) -> Tuple[int, int]:
@@ -126,16 +141,37 @@ def bits(key: torch.Tensor, shape: Shape = (), device="cuda") -> torch.Tensor:
     return a ^ b
 
 
-def _fold_range(higher: torch.Tensor, lower: torch.Tensor, lo: torch.Tensor,
-                hi: torch.Tensor) -> torch.Tensor:
+def _fold_range(higher: torch.Tensor, lower: torch.Tensor, lo, hi
+                ) -> torch.Tensor:
     """``jax.random.randint``'s fold of two 32-bit draws into [lo, hi),
-    uint32 wrap-around included."""
-    span = torch.where(hi <= lo, torch.ones_like(hi), (hi - lo) & _MASK)
+    uint32 wrap-around included; ``lo``/``hi`` are ints or int64 tensors
+    that broadcast against the draws."""
+    if isinstance(lo, int) and isinstance(hi, int):
+        span = 1 if hi <= lo else (hi - lo) & _MASK
+    else:
+        span = torch.where(hi <= lo, torch.ones_like(hi - lo),
+                           (hi - lo) & _MASK)
     mult = (65536 % span)
     mult = ((mult * mult) & _MASK) % span
     off = (((higher % span) * mult) & _MASK) + (lower % span)
     off = (off & _MASK) % span
     return lo + off
+
+
+def _int_bound(v, device):
+    """A randint bound: a Python int stays one, a tensor moves to the
+    draw's device as int64."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.int64)
+    return int(v)
+
+
+def _float_bound(v, device):
+    """A uniform bound as JAX takes it: a Python number rounded to
+    float32 (kept a Python float), a tensor as float32 on the device."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.float32)
+    return float(np.float32(v))
 
 
 def randint(key: torch.Tensor, shape: Shape, minval, maxval,
@@ -148,9 +184,8 @@ def randint(key: torch.Tensor, shape: Shape, minval, maxval,
     kh, kl = split(key)
     higher = bits(kh, shape, device)
     lower = bits(kl, shape, device)
-    lo = torch.as_tensor(minval, dtype=torch.int64, device=device)
-    hi = torch.as_tensor(maxval, dtype=torch.int64, device=device)
-    return _fold_range(higher, lower, lo, hi)
+    return _fold_range(higher, lower, _int_bound(minval, device),
+                       _int_bound(maxval, device))
 
 
 def randint_rows(keys: torch.Tensor, n: int, minval: int,
@@ -180,9 +215,11 @@ def uniform(key: torch.Tensor, shape: Shape = (), minval=0.0, maxval=1.0,
     b = bits(key, shape, device)
     fb = ((b >> 9) | 0x3F800000).to(torch.int32)
     floats = fb.view(torch.float32) - 1.0
-    lo = torch.as_tensor(minval, dtype=torch.float32, device=device)
-    hi = torch.as_tensor(maxval, dtype=torch.float32, device=device)
-    return torch.maximum(lo, _fma(floats, hi - lo, lo))
+    lo, hi = _float_bound(minval, device), _float_bound(maxval, device)
+    if isinstance(lo, float) and isinstance(hi, float):
+        width = float(np.float32(hi) - np.float32(lo))   # float32, as JAX
+        return torch.clamp(_fma(floats, width, lo), min=lo)
+    return torch.clamp(_fma(floats, hi - lo, lo), min=lo)
 
 
 # XLA's single-precision erfinv (M. Giles, "Approximating the erfinv
@@ -201,16 +238,13 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     w = -torch.log1p(-x * x)
     lt = w < 5.0
     w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
-    p = torch.where(lt, torch.tensor(_ERFINV_LT5[0], device=x.device),
-                    torch.tensor(_ERFINV_GE5[0], device=x.device))
+    p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0]).float()
     for c_lt, c_ge in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
-        c = torch.where(lt, torch.tensor(c_lt, device=x.device),
-                        torch.tensor(c_ge, device=x.device))
-        p = _fma(p, w, c)
+        p = _fma(p, w, torch.where(lt, c_lt, c_ge).float())
     return torch.where(x.abs() == 1.0, x * math.inf, p * x)
 
 
-_SQRT2 = torch.tensor(math.sqrt(2.0), dtype=torch.float32)
+_SQRT2 = float(np.float32(math.sqrt(2.0)))
 
 
 def normal(key: torch.Tensor, shape: Shape = (), device="cuda"
@@ -219,7 +253,7 @@ def normal(key: torch.Tensor, shape: Shape = (), device="cuda"
     device = resolve_device(device)
     lo = torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)).item()
     u = uniform(key, shape, lo, 1.0, device)
-    return _SQRT2.to(device) * erfinv(u)
+    return _SQRT2 * erfinv(u)
 
 
 def truncated_normal(key: torch.Tensor, lower: float, upper: float,
@@ -227,7 +261,7 @@ def truncated_normal(key: torch.Tensor, lower: float, upper: float,
     """``jax.random.truncated_normal`` in float32, clamped to the open
     interval (lower, upper)."""
     device = resolve_device(device)
-    sqrt2 = _SQRT2.to(device)
+    sqrt2 = torch.tensor(_SQRT2, device=device)
     lo = torch.tensor(lower, dtype=torch.float32, device=device)
     hi = torch.tensor(upper, dtype=torch.float32, device=device)
     a = torch.erf(lo / sqrt2)
@@ -238,12 +272,79 @@ def truncated_normal(key: torch.Tensor, lower: float, upper: float,
                        torch.nextafter(hi, -inf))
 
 
-def choice(key: torch.Tensor, n: int, p: torch.Tensor) -> torch.Tensor:
-    """``jax.random.choice(key, n, p=p)`` for one draw with replacement:
-    ``r = cumsum(p)[-1] * (1 - u)``, then ``searchsorted`` (left).
-    Returns a 0-d int64 tensor on ``p``'s device."""
+_SCAN_BLOCK = 16
+
+
+def cumsum(x: torch.Tensor) -> torch.Tensor:
+    """1-D float cumulative sum in the order XLA's CPU backend sums
+    ``jnp.cumsum``: blocks of 16 each summed in order, the block totals
+    scanned the same way, and each block's exclusive prefix added.
+    ``torch.cumsum`` rounds in another order on the CPU and in a
+    timing-dependent one on CUDA, which moves ``choice``'s pick at large
+    N; this one is bit-identical on both and run to run."""
+    n = x.shape[0]
+    if n <= _SCAN_BLOCK:
+        blocks = x.reshape(1, n)
+    else:
+        nb = -(-n // _SCAN_BLOCK)
+        blocks = torch.nn.functional.pad(
+            x, (0, nb * _SCAN_BLOCK - n)).reshape(nb, _SCAN_BLOCK)
+    cols = [blocks[:, 0]]
+    for j in range(1, blocks.shape[1]):
+        cols.append(cols[-1] + blocks[:, j])
+    inner = torch.stack(cols, dim=1)
+    if n <= _SCAN_BLOCK:
+        return inner.reshape(n)
+    outer = cumsum(inner[:, -1])
+    before = torch.cat([torch.zeros_like(outer[:1]), outer[:-1]])
+    return (inner + before[:, None]).reshape(-1)[:n]
+
+
+def permutation(key: torch.Tensor, n: int, device="cuda") -> torch.Tensor:
+    """``jax.random.permutation(key, n)``: ``arange(n)`` through JAX's
+    sort shuffle.  ``ceil(3 ln(max(1, n)) / ln(2^32 - 1))`` rounds (one up
+    to n = 1,625; two up to about 2.6e9); each round splits a fresh
+    subkey, draws 32-bit keys and sorts by them stably
+    (``lax.sort_key_val`` is stable), so tied keys keep their order as in
+    JAX.  Returns int64 on ``device``."""
+    device = resolve_device(device)
+    n = int(n)
+    x = torch.arange(n, dtype=torch.int64, device=device)
+    rounds = int(np.ceil(3 * np.log(max(1, n))
+                         / np.log(np.iinfo(np.uint32).max)))
+    for _ in range(rounds):
+        key, sub = split(key)
+        x = x[torch.sort(bits(sub, (n,), device), stable=True).indices]
+    return x
+
+
+def choice(key: torch.Tensor, n: int, shape: Shape = (),
+           replace: bool = True, p: torch.Tensor = None,
+           device="cuda") -> torch.Tensor:
+    """``jax.random.choice(key, n, shape, replace, p)`` over ``arange(n)``:
+    without ``p`` and without replacement ``permutation(key, n)[:k]``;
+    with ``p`` and replacement ``r = cumsum(p)[-1] * (1 - u)`` (the
+    :func:`cumsum` of XLA's order), then ``searchsorted`` (left).
+    Returns int64 on ``p``'s device (``device`` is then unused), else on
+    ``device``.  Without ``p`` replacement draws are ``randint``; with
+    ``p`` only replacement draws are ported (JAX's Gumbel top-k path for
+    ``replace=False`` has no caller here)."""
+    shape = _shape(shape)
+    k = math.prod(shape)
+    if p is None:
+        device = resolve_device(device)
+        if replace:
+            return randint(key, shape, 0, n, device)
+        if k > n:
+            raise ValueError(f"Cannot take a larger sample (size {k}) than "
+                             f"population (size {n}) when 'replace=False'")
+        return permutation(key, n, device)[:k].reshape(shape)
     if p.shape != (n,):
         raise ValueError(f"p must have shape ({n},), got {tuple(p.shape)}")
-    p_cuml = torch.cumsum(p.to(torch.float32), 0)
-    r = p_cuml[-1] * (1.0 - uniform(key, (), device=p.device))
-    return torch.searchsorted(p_cuml, r.reshape(1)).reshape(())
+    if not replace:
+        raise NotImplementedError(
+            "choice with p and replace=False (JAX's Gumbel top-k) has no "
+            "caller in the port")
+    p_cuml = cumsum(p.to(torch.float32))
+    r = p_cuml[-1] * (1.0 - uniform(key, shape, device=p.device))
+    return torch.searchsorted(p_cuml, r.reshape(-1)).reshape(shape)

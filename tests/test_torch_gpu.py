@@ -260,3 +260,49 @@ def test_batched_runtime_on_cuda_matches_cpu(cuda, runtime):
     for k in p_cpu:
         assert float((p_cpu[k] - p_gpu[k]).abs().max()) < 1e-4, k
     assert float((f_cpu - f_gpu).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("scheme,select", [
+    ("gradient_cluster_auction", "paper"),
+    ("gradient_cluster_random", "paper"), ("random", "paper"),
+    ("gradient_cluster_auction", "random"),
+    ("gradient_cluster_auction", "fedcs"),
+    ("gradient_cluster_auction", "longterm_auction")])
+def test_simulate_rounds_on_cuda_has_no_host_sync_and_matches_cpu(
+        cuda, scheme, select):
+    """The selection-only loop queues its rounds with no host
+    synchronisation (``set_sync_debug_mode("error")`` raises on one), is
+    bit-identical to its per-round reference on the card, and selects
+    the CPU run's winners from the same state."""
+    import dataclasses
+
+    from repro_torch import rng
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core import rounds as RND
+    from repro_torch.core import schemes as SCH
+
+    cfg = FLConfig(num_clients=20_000, num_clusters=10, scheme=scheme,
+                   scheme_select=select, init_energy_mode="normal")
+    key, kr = rng.PRNGKey(0), rng.fold_in(rng.PRNGKey(0), 1)
+    cpu_state = RND.synthetic_fleet(cfg, key, device="cpu")
+    state = dataclasses.replace(
+        cpu_state, **{f: getattr(cpu_state, f).to(cuda) for f in
+                      ("clusters", "residual", "history", "local_sizes")},
+        scheme_state=SCH.init_scheme_state(cfg, cuda))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fs, m, wins = RND.simulate_rounds(state, cfg, kr, 10,
+                                          record_wins=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    rf, rm, rwins = RND.simulate_rounds_reference(state, cfg, kr, 10,
+                                                  record_wins=True)
+    np.testing.assert_array_equal(wins.cpu().numpy(), rwins)
+    assert torch.equal(fs.residual, rf.residual)
+    assert torch.equal(fs.history, rf.history)
+    for k in m:
+        np.testing.assert_array_equal(m[k].cpu().numpy(), rm[k], err_msg=k)
+    _, _, cwins = RND.simulate_rounds(cpu_state, cfg, kr, 10,
+                                      record_wins=True)
+    assert torch.equal(wins.cpu(), cwins)

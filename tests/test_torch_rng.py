@@ -101,5 +101,5 @@ def test_choice_with_p_same_index(seed):
     for f in range(25):
         want = int(jax.random.choice(jax.random.fold_in(kj, f), 50,
                                      p=jnp.asarray(p)))
-        got = int(rng.choice(rng.fold_in(kt, f), 50, torch.tensor(p)))
+        got = int(rng.choice(rng.fold_in(kt, f), 50, p=torch.tensor(p)))
         assert got == want

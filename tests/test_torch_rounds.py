@@ -17,8 +17,6 @@ from repro_torch.configs.base import FLConfig
 from repro_torch.core import auction as TA
 from repro_torch.core import energy as TE
 from repro_torch.core import rounds as TR
-from repro_torch.core import schemes as TSCH
-from repro_torch.core import selection as TS
 
 # one intra-op thread: pytest-xdist runs several workers on the same
 # cores, where torch's spinning OpenMP pools slow every test many-fold
@@ -152,17 +150,7 @@ def test_zero_winner_round_pays_zero():
             assert float(tm[k]) == 0.0 == float(jm[k])
 
 
-def test_unported_schemes_raise():
-    for name in ("random", "fedcs", "longterm_auction"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TSCH.get_scheme(name)
-    state = TS.SelectionState(
-        clusters=torch.zeros(4, dtype=torch.int32),
-        residual=torch.full((4,), 80.0),
-        history=torch.zeros(4, dtype=torch.int32),
-        local_sizes=torch.full((4,), 50, dtype=torch.int32))
-    cfg = FLConfig(num_clients=4, num_clusters=1, scheme="random")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TS.select_round(state, cfg, rng.PRNGKey(0))
+def test_dynamics_round_step_raises():
+    cfg = FLConfig(num_clients=4, num_clusters=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TR.make_round_step(cfg, dynamics=True)

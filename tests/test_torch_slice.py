@@ -17,6 +17,7 @@ from repro_torch import interop, rng
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import energy as TE
 from repro_torch.core import rounds as TRND
+from repro_torch.core import schemes as TSCH
 from repro_torch.core.adapters import cnn_adapter as t_adapter
 from repro_torch.core.server import FederatedServer as TServer
 from repro_torch.data import synthetic as TSYN
@@ -114,6 +115,13 @@ DEFAULT_DEVICE_CALLS = {
     "params_from_numpy": lambda d: interop.params_from_numpy(
         {"c1_b": np.zeros(6, np.float32)}),
     "rng.uniform": lambda d: rng.uniform(rng.PRNGKey(0), (3,)),
+    "rng.permutation": lambda d: rng.permutation(rng.PRNGKey(0), 5),
+    "rng.choice": lambda d: rng.choice(rng.PRNGKey(0), 5, (2,),
+                                       replace=False),
+    "synthetic_fleet": lambda d: TRND.synthetic_fleet(FLConfig(**KW),
+                                                      rng.PRNGKey(0)),
+    "init_scheme_state": lambda d: TSCH.init_scheme_state(
+        FLConfig(**KW, scheme_select="longterm_auction")),
     "rope_freqs": lambda d: TLAYERS.rope_freqs(64, 10_000.0),
 }
 
@@ -162,9 +170,9 @@ def test_cli_defaults_match_jax_cli(monkeypatch):
                                   ["--churn", "0.1"],
                                   ["--defense", "clip"],
                                   ["--watchdog", "on"],
-                                  ["--scheme-select", "fedcs"],
-                                  ["--scheme", "random"],
-                                  ["--mode", "selection"]])
+                                  ["--mode", "transformer"],
+                                  ["--checkpoint-every", "1"],
+                                  ["--adversary-frac", "0.1"]])
 def test_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError):
         TRAIN.main(["--device", "cpu", "--clients", "12", "--clusters", "3",
