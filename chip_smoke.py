@@ -60,7 +60,25 @@
    scheme's stage-1 seconds, seconds per round, final accuracy,
    ``energy_std`` and mean ``vds_gap`` (the numbers behind the paper's
    figures 3, 4 and 9).
-9. Selection path: ``--mode selection --clients 1000000 --rounds 100``
+9. Dynamics path: the faulty fleets of the reference's fleet_dynamics
+   benchmark (``--churn 0.1`` and ``0.3`` with ``--deadline 1.5
+   --aggregation buffered``) and the same run at churn 0, at the
+   reference defaults for 30 rounds on ``--runtime vectorized`` with
+   ``--log-jsonl``, counts reset before and read after each (26
+   ``lloyd_step`` launches): every round's winners and outcome codes
+   held to the JAX package's (DYN_WINNERS), each log valid under the
+   schema with 30 rounds and, faulty, at least one ``buffer/fold``;
+   seconds per round at each churn.  Then 3 rounds at churn 0.25 on the
+   ``sequential``, ``vectorized`` and ``device`` runtimes (the same
+   selections and outcomes, params within 1e-4, round 2 under
+   ``--audit-sync``); churn 0 with buffered
+   aggregation (REFERENCE_WINNERS); a 6-round run checkpointed at round 3
+   and a second server resumed from it, with and without dynamics
+   (rounds 3-5 and params bit-identical, no ``lloyd_step`` launch in the
+   resumed leg; save and restore seconds); ``--audit-sync`` (warm rounds
+   under ``set_sync_debug_mode("error")``) and four more audited rounds
+   with the counted transfers per round; ``--profile-dir`` (a trace).
+10. Selection path: ``--mode selection --clients 1000000 --rounds 100``
    for each ``--scheme-select`` value (warm and cold rounds/s); then, for
    those four and the three baseline ``--scheme`` values,
    ``simulate_rounds`` at N = 1,000,000 and T = 10 with ``record_wins``
@@ -69,7 +87,7 @@
    ``simulate_rounds_reference`` (winners, residual, history, metrics),
    and a warm 100-round ``simulate_rounds`` of each ``--scheme-select``
    under the same mode.
-10. Serving path at full width: qwen2-0.5b (24 layers, bf16, weights
+11. Serving path at full width: qwen2-0.5b (24 layers, bf16, weights
    from ``init_params(cfg, PRNGKey(0))``) with ``attn_impl="pallas"``:
    ``logits_fn`` prefill of 4,096 tokens, counts reset before and read
    after (24 flash_attention launches), held against the plain
@@ -229,6 +247,101 @@ SELECT_WINNERS = {
         36, 44, 58, 62]]),
 }
 PAPER_SCHEMES = tuple(SCHEME_WINNERS)
+# The faulty fleets of the reference's fleet_dynamics benchmark
+# (benchmarks/run.py: churn 0.1 and 0.3, deadline 1.5, buffered
+# aggregation) at the reference defaults for the paper's 30 rounds: the
+# clients the JAX package selects each round and the outcome code of each
+# (1 completed, 2 late, 3 dropped): the RoundLogs' ``selected`` and the
+# ``outcome_log`` of the FederatedServer that python -m
+# repro.launch.train --mode paper --runtime sequential --churn <c>
+# --deadline 1.5 --aggregation buffered builds, run on the CPU.  They depend on the clusters,
+# energy, history, the dynamics key chain and the replacement draws,
+# never on the trained params.
+DYN_FLAGS = ["--deadline", "1.5", "--aggregation", "buffered"]
+DYN_WINNERS = {
+    ("0.1", "selected"): (
+        [[1, 35, 40], [12, 35, 36, 41, 49, 58, 60, 83], [0, 1, 3,
+        19, 35, 36, 44, 58, 62], [6, 24, 31, 57, 63, 72, 79, 80, 85,
+        98], [18, 21, 35, 36, 39, 43, 52, 64, 67, 90], [5, 6, 9, 21,
+        32, 37, 44, 53, 70, 98], [3, 5, 11, 20, 28, 56, 67, 84, 92,
+        99], [2, 11, 25, 27, 29, 30, 48, 54, 56, 93], [12, 25, 37,
+        40, 41, 49, 63, 64, 78], [7, 21, 24, 72, 73, 80, 85, 86, 88,
+        89], [20, 23, 38, 51, 57, 62, 75, 79, 84, 96], [9, 17, 22,
+        31, 34, 46, 53, 60, 65, 68], [1, 15, 18, 26, 27, 32, 54, 70,
+        83, 99], [23, 45, 48, 50, 61, 66, 69, 74, 82, 97], [4, 13,
+        29, 42, 47, 50, 76, 78, 91, 95], [8, 10, 14, 16, 33, 55, 59,
+        71, 77, 82], [19, 22, 24, 28, 30, 51, 75, 86, 93, 97], [17,
+        34, 39, 43, 46, 65, 71, 88, 90, 92], [0, 15, 31, 38, 42, 66,
+        69, 73, 87, 94], [3, 11, 40, 45, 47, 52, 64, 68, 89, 96],
+        [2, 5, 21, 26, 49, 53, 54, 57, 80, 98], [7, 8, 10, 12, 14,
+        16, 33, 79, 81, 95], [13, 20, 28, 55, 61, 62, 74, 76, 87,
+        99], [1, 9, 18, 44, 60, 63, 67, 72, 85, 86], [4, 22, 23, 29,
+        46, 50, 58, 65, 71, 77], [6, 25, 27, 39, 41, 48, 52, 70, 83,
+        84], [19, 24, 30, 32, 37, 51, 56, 75, 78, 93], [15, 31, 34,
+        43, 66, 82, 88, 89, 90, 97], [0, 17, 38, 42, 45, 69, 73, 91,
+        94, 96], [3, 7, 11, 26, 40, 49, 64, 68, 85, 92]]),
+    ("0.1", "outcomes"): (
+        [[2, 2, 2], [2, 2, 2, 2, 2, 2, 2, 2], [2, 2, 2, 2, 2, 2, 2,
+        2, 2], [2, 3, 1, 2, 2, 1, 1, 1, 1, 2], [2, 2, 2, 2, 2, 2, 2,
+        3, 2, 3], [2, 2, 2, 2, 2, 2, 2, 2, 2, 2], [2, 2, 2, 1, 2, 2,
+        2, 2, 2, 2], [2, 2, 2, 3, 1, 1, 1, 2, 2, 2], [2, 2, 2, 2, 2,
+        2, 2, 2, 2], [1, 3, 1, 1, 2, 2, 1, 1, 2, 2], [1, 1, 2, 1, 2,
+        2, 1, 1, 3, 2], [2, 1, 1, 3, 1, 1, 2, 2, 1, 1], [2, 1, 3, 2,
+        2, 2, 2, 2, 2, 2], [1, 1, 1, 1, 1, 1, 1, 1, 1, 1], [1, 1, 1,
+        1, 1, 1, 3, 2, 1, 1], [1, 1, 1, 1, 1, 1, 1, 1, 1, 1], [3, 3,
+        1, 1, 3, 1, 1, 1, 2, 1], [1, 1, 2, 2, 1, 1, 1, 2, 2, 2], [3,
+        3, 1, 2, 1, 1, 1, 2, 1, 1], [2, 2, 2, 1, 1, 2, 2, 1, 2, 2],
+        [2, 2, 2, 2, 3, 2, 2, 3, 3, 2], [3, 1, 1, 2, 1, 1, 1, 1, 3,
+        1], [1, 2, 2, 1, 1, 2, 1, 1, 1, 2], [2, 2, 3, 2, 2, 2, 2, 2,
+        1, 3], [1, 1, 1, 1, 1, 3, 2, 1, 1, 1], [2, 2, 2, 2, 2, 1, 2,
+        2, 2, 2], [2, 1, 1, 2, 3, 1, 2, 1, 3, 2], [1, 3, 3, 2, 1, 1,
+        2, 2, 2, 1], [2, 1, 2, 1, 1, 1, 2, 3, 1, 2], [2, 3, 2, 2, 2,
+        2, 2, 3, 1, 2]]),
+    ("0.3", "selected"): (
+        [[1, 35, 40], [12, 35, 36, 41, 49, 58, 60, 83], [0, 19, 44,
+        62, 63], [3, 18, 24, 31, 56, 67, 72, 79, 80, 85], [5, 20,
+        21, 43, 52, 56, 57, 64, 98, 99], [5, 6, 9, 32, 40, 44, 53,
+        98], [6, 27, 28, 29, 35, 41, 60, 84, 92, 93], [1, 3, 7, 12,
+        25, 36, 39, 70, 84, 88], [2, 21, 24, 26, 30, 37, 48, 73, 85,
+        89], [7, 11, 49, 53, 54, 72, 78, 85, 90, 96], [6, 38, 51,
+        57, 62, 63, 64, 75, 79, 80], [9, 20, 25, 27, 31, 32, 54, 68,
+        83, 86], [4, 18, 22, 23, 30, 45, 66, 71, 97, 99], [46, 47,
+        58, 65, 69, 73, 74, 80, 82, 91], [13, 15, 19, 34, 42, 61,
+        67, 76, 88, 90], [8, 10, 14, 29, 33, 77, 82, 86, 91, 95],
+        [11, 22, 23, 24, 28, 39, 70, 75, 96, 97], [38, 40, 46, 51,
+        55, 69, 87, 92, 93, 94], [0, 1, 5, 43, 48, 52, 56, 57, 64,
+        79], [3, 21, 30, 42, 44, 47, 65, 78, 86, 89], [2, 5, 17, 26,
+        31, 49, 53, 54, 68, 90], [11, 12, 20, 24, 26, 63, 67, 75,
+        98, 99], [9, 15, 23, 28, 34, 50, 62, 66, 71, 87], [0, 4, 18,
+        29, 37, 46, 55, 71, 82, 93], [22, 45, 51, 58, 66, 77, 80,
+        83, 84, 89], [16, 17, 43, 48, 60, 65, 69, 72, 74, 91], [8,
+        16, 17, 19, 23, 40, 42, 61, 94, 95], [13, 15, 27, 32, 39,
+        50, 74, 76, 78, 81], [10, 12, 14, 16, 45, 61, 73, 88, 97,
+        99], [6, 20, 35, 37, 41, 49, 63, 64, 92, 98]]),
+    ("0.3", "outcomes"): (
+        [[2, 2, 2], [2, 3, 2, 2, 3, 3, 2, 2], [2, 3, 2, 2, 2], [2,
+        2, 3, 1, 2, 2, 1, 1, 1, 3], [2, 2, 2, 2, 2, 1, 1, 3, 2, 2],
+        [3, 2, 2, 2, 2, 2, 2, 2], [2, 2, 3, 3, 2, 3, 2, 2, 3, 2],
+        [2, 3, 1, 2, 2, 2, 3, 2, 2, 2], [2, 2, 1, 3, 1, 2, 1, 2, 1,
+        2], [3, 2, 2, 2, 3, 3, 3, 1, 2, 3], [2, 2, 1, 2, 3, 2, 2, 3,
+        1, 3], [3, 3, 2, 3, 3, 3, 3, 1, 2, 1], [1, 3, 1, 3, 1, 1, 1,
+        1, 3, 2], [3, 3, 2, 1, 1, 3, 1, 3, 1, 1], [3, 1, 2, 1, 1, 3,
+        3, 3, 2, 3], [3, 1, 1, 1, 1, 1, 1, 1, 1, 1], [2, 3, 3, 1, 1,
+        2, 2, 1, 2, 3], [2, 3, 1, 2, 3, 3, 3, 2, 2, 1], [3, 2, 2, 3,
+        3, 3, 2, 2, 2, 1], [2, 3, 1, 1, 3, 1, 1, 2, 1, 2], [2, 2, 1,
+        2, 1, 3, 3, 2, 1, 2], [3, 2, 2, 1, 2, 2, 2, 3, 2, 2], [2, 1,
+        1, 2, 3, 3, 3, 3, 1, 1], [2, 3, 3, 3, 3, 1, 1, 3, 1, 2], [1,
+        1, 2, 2, 1, 3, 2, 2, 3, 3], [1, 1, 2, 3, 2, 3, 1, 2, 1, 1],
+        [3, 3, 1, 3, 1, 2, 1, 3, 1, 3], [3, 1, 2, 2, 2, 1, 1, 3, 2,
+        1], [1, 2, 1, 3, 3, 1, 2, 2, 1, 2], [2, 2, 3, 2, 2, 2, 3, 2,
+        2, 2]]),
+}
+# the runtimes-agree and resume phases: a short faulty run, and the
+# synchronous dynamics a resume continues bit for bit (a buffered run
+# loses the late updates in flight at the snapshot, FedBuff's semantics)
+AGREE_FLAGS = ["--rounds", "3", "--churn", "0.25", "--deadline", "1.2",
+               "--aggregation", "buffered", "--audit-sync"]
+RESUME_DYN_FLAGS = ["--churn", "0.1", "--deadline", "1.5"]
 # the selection path: --mode selection at a million clients
 SELECTION_CLIENTS = 1_000_000
 SELECTION_ARGS = ["--mode", "selection", "--clients", str(SELECTION_CLIENTS),
@@ -1015,6 +1128,179 @@ def selection_path(OPS, TRAIN, cuda) -> None:
         print(line, flush=True)
 
 
+def first_diff(got, want):
+    """The first round where two per-round lists differ, as text."""
+    for t, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            return f"round {t}: {a} against {b}"
+    return f"lengths {len(got)} and {len(want)}"
+
+
+def dynamics_path(OPS, TRAIN, obs, servers, smi) -> int:
+    """The fleet-dynamics path (churn, deadlines, buffered aggregation),
+    the event stream, checkpoints and resume, and the sync auditor, at
+    the reference defaults on the card.  Returns the ``lloyd_step``
+    launches of the churn-0.1 run."""
+    from repro_torch.obs import schema as SCHEMA
+    from repro_torch.sim import dynamics as DYN
+
+    work = ROOT / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+
+    # ---- faulty fleets, 30 rounds, against the JAX package ------------
+    s_per_round, launches = {}, {}
+    for churn in ("0", "0.1", "0.3"):
+        jsonl = work / f"events_churn{churn}.jsonl"
+        flags = (["--churn", churn] + DYN_FLAGS if churn != "0" else [])
+        reset_counts(OPS)
+        obs.SPANS.clear()
+        result = TRAIN.main(["--quiet", "--runtime", "vectorized",
+                             "--log-jsonl", str(jsonl)] + flags)
+        torch.cuda.synchronize()
+        launches[churn] = OPS.lloyd_step.launches
+        srv = servers[-1]
+        require(launches[churn] == 26, f"churn {churn}: stage 1 made "
+                f"{launches[churn]} lloyd_step launches, expected 26")
+        require(OPS.kmeans_assign.launches == OPS.flash_attention.launches
+                == 0, f"churn {churn}: launched a kernel it does not use")
+        require(result["params_finite"] and all(
+            math.isfinite(a) for a in result["test_acc"]),
+            f"churn {churn}: non-finite params or accuracy")
+        events = SCHEMA.load_jsonl(str(jsonl))
+        errs = SCHEMA.validate_events(events, rounds=30, eval_every=1,
+                                      scheme_select="paper")
+        require(not errs, f"churn {churn}: the event log fails the "
+                f"schema: {errs[:3]}")
+        stage1 = obs.SPANS["run/cluster"]
+        s_per_round[churn] = (result["wall_s"] - stage1) / 30
+        line = (f"dynamics churn {churn} (vectorized, 30 rounds): "
+                f"lloyd_step launches={launches[churn]} "
+                f"stage1_s={stage1!r} s_per_round={s_per_round[churn]!r} "
+                f"final_test_acc={result['test_acc'][-1]!r} "
+                f"events={len(events)} schema ok")
+        if churn == "0":
+            require(result["selected"] == SCHEME_WINNERS[
+                "gradient_cluster_auction"], "churn 0: not the plain "
+                "run's winners")
+        else:
+            want = DYN_WINNERS[(churn, "selected")]
+            require(result["selected"] == want, f"churn {churn}: the JAX "
+                    f"package selects otherwise, "
+                    f"{first_diff(result['selected'], want)}")
+            got = [o.tolist() for o in srv.outcome_log]
+            want = DYN_WINNERS[(churn, "outcomes")]
+            require(got == want, f"churn {churn}: outcome codes differ "
+                    f"from the JAX package's, {first_diff(got, want)}")
+            folds = sum(e["kind"] == "dynamics"
+                        and e.get("name") == "buffer/fold" for e in events)
+            require(folds >= 1, f"churn {churn}: no buffer/fold event")
+            d = result["dynamics"]
+            line += (f" selected+outcomes=DYN_WINNERS buffer_folds={folds}"
+                     f" completed={d['num_completed']} "
+                     f"late={d['num_late']} dropped={d['num_dropped']}")
+        print(line + f" [{smi}]", flush=True)
+    print(f"dynamics overhead (s_per_round vs churn 0): churn 0.1 "
+          f"{s_per_round['0.1'] / s_per_round['0']!r}x, churn 0.3 "
+          f"{s_per_round['0.3'] / s_per_round['0']!r}x [{smi}]", flush=True)
+
+    # ---- runtimes agree ----------------------------------------------
+    got = {}
+    for runtime in ("sequential", "vectorized", "device"):
+        reset_counts(OPS)
+        result = TRAIN.main(["--quiet", "--runtime", runtime] + AGREE_FLAGS)
+        torch.cuda.synchronize()
+        require(OPS.lloyd_step.launches == 26,
+                f"{runtime}: {OPS.lloyd_step.launches} lloyd_step launches")
+        srv = servers[-1]
+        got[runtime] = (result["selected"],
+                        [o.tolist() for o in srv.outcome_log], srv.params)
+    sel, outs, params = got["sequential"]
+    require(any(DYN.LATE in o for o in outs), "the short faulty run has "
+            "no late winner")
+    for runtime in ("vectorized", "device"):
+        require(got[runtime][0] == sel and got[runtime][1] == outs,
+                f"{runtime}: selections or outcomes differ from the "
+                "sequential runtime's")
+        diff = max_param_diff(got[runtime][2], params)
+        require(diff < PARAMS_TOL, f"{runtime}: params differ from the "
+                f"sequential runtime's by {diff} under dynamics")
+        print(f"dynamics runtimes: {runtime} selects and classifies as "
+              f"sequential, max_abs_dparams={diff!r}; round 2 of each "
+              "runtime under the sync audit", flush=True)
+
+    # ---- churn 0 with buffered aggregation is the plain run ----------
+    result = TRAIN.main(MAIN_ARGS + ["--runtime", "vectorized", "--churn",
+                                     "0", "--aggregation", "buffered"])
+    require(result["selected"] == REFERENCE_WINNERS
+            and "dynamics" not in result,
+            f"churn 0 buffered: selected {result['selected']}")
+    print("dynamics churn 0 --aggregation buffered: REFERENCE_WINNERS, no "
+          "fault model", flush=True)
+
+    # ---- resume, with and without dynamics ---------------------------
+    for label, flags in (("plain", []), ("dynamics", RESUME_DYN_FLAGS)):
+        ck = str(work / f"resume_{label}")
+        argv = ["--quiet", "--runtime", "vectorized", "--rounds", "6",
+                "--checkpoint-path", ck] + flags
+        obs.SPANS.clear()
+        full = TRAIN.main(argv + ["--checkpoint-every", "3"])
+        ref = servers[-1]
+        save_s = obs.SPANS["run/checkpoint"]
+        reset_counts(OPS)
+        tail = TRAIN.main(argv + ["--resume"])
+        torch.cuda.synchronize()
+        srv = servers[-1]
+        require(OPS.lloyd_step.launches == 0, f"resume {label}: the "
+                f"resumed leg made {OPS.lloyd_step.launches} lloyd_step "
+                "launches")
+        require(tail["rounds"] == [3, 4, 5]
+                and tail["selected"] == full["selected"][3:]
+                and tail["test_loss"] == full["test_loss"][3:],
+                f"resume {label}: rounds 3-5 differ from the "
+                "uninterrupted run's")
+        require(all(torch.equal(ref.params[k], srv.params[k])
+                    for k in ref.params),
+                f"resume {label}: params are not bit-identical")
+        if flags:
+            require([o.tolist() for o in ref.outcome_log[3:]]
+                    == [o.tolist() for o in srv.outcome_log],
+                    f"resume {label}: outcomes differ")
+        print(f"resume {label} (vectorized, 6 rounds, checkpoint at 3): "
+              f"rounds 3-5 bit-identical, resumed lloyd_step launches=0 "
+              f"save_s={save_s!r} restore_s={obs.SPANS['run/restore']!r}"
+              f" [{smi}]", flush=True)
+
+    # ---- the sync auditor, counted transfers, the profiler -----------
+    base = ["--quiet", "--runtime", "vectorized", "--churn", "0.1"]
+    TRAIN.main(base + DYN_FLAGS + ["--rounds", "6", "--audit-sync"])
+    srv = servers[-1]
+    snap = obs.torch_stats.snapshot()
+    warm = 4
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with obs.sync_audit():
+        for r in range(6, 6 + warm):
+            srv._dispatch_round(r, eval_now=True)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t) / warm
+    srv._flush_pending()
+    moved = obs.torch_stats.delta(snap)
+    print("sync audit (vectorized, dynamics): warm rounds 2-9 ran under "
+          "set_sync_debug_mode('error'); per warm round: "
+          + " ".join(f"{k}={moved.get(k, 0) / warm!r}" for k in
+                     ("h2d_calls", "h2d_bytes", "d2h_calls", "d2h_bytes"))
+          + f" s={dt!r} [{smi}]", flush=True)
+    prof = work / "profile"
+    TRAIN.main(base + DYN_FLAGS + ["--rounds", "2", "--profile-dir",
+                                   str(prof)])
+    traces = list(prof.glob("trace.*.json"))
+    require(bool(traces) and traces[0].stat().st_size > 0,
+            "--profile-dir wrote no trace")
+    print(f"profile-dir: {traces[0].name} {traces[0].stat().st_size} "
+          "bytes", flush=True)
+    return launches["0.1"]
+
+
 def toolkit(BUILD, name: str) -> str:
     """A program of the CUDA toolkit whose nvcc builds the kernels."""
     tool = Path(BUILD._nvcc()).parent / name
@@ -1097,7 +1383,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     require(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     TRAIN.set_float32_precision()
@@ -1211,6 +1498,10 @@ def main() -> int:
     phase("scheme comparison path", t0)
     scheme_comparison_path(OPS, TRAIN, obs, servers)
 
+    # ---- dynamics path --------------------------------------------------
+    phase("dynamics path", t0)
+    dyn_launches = dynamics_path(OPS, TRAIN, obs, servers, card)
+
     # ---- selection path -------------------------------------------------
     phase("selection path", t0)
     selection_path(OPS, TRAIN, cuda)
@@ -1236,8 +1527,8 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         row("lloyd_step", "src/repro_torch/csrc/kmeans.cu",
-            "src/repro/kernels/kmeans.py:144", launches, shapes["main"],
-            None),
+            "src/repro/kernels/kmeans.py:144", dyn_launches,
+            shapes["main"], None),
         row("kmeans_assign", "src/repro_torch/csrc/kmeans.cu",
             "src/repro/kernels/kmeans.py:109", assign_launches,
             assign["main"], None),

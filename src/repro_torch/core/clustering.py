@@ -28,6 +28,7 @@ import torch
 
 from repro_torch import obs, rng
 from repro_torch.configs.base import FLConfig
+from repro_torch.device import synchronize
 from repro_torch.kernels import ops as KOPS
 
 
@@ -252,11 +253,14 @@ def cluster_clients(grad_fn: Callable, params, client_data, cfg: FLConfig,
                     if feature_kind == "gradient"
                     else local_steps_fn(params, x, y, ki))
             feats = torch.stack(feats)
+            synchronize(feats.device)
     if feats.shape[1] > cfg.cluster_feature_dim * 8:
         with obs.span("cluster/project"):
             feats = project_features_blocked(rng.PRNGKey(1234), feats,
                                              cfg.cluster_feature_dim)
+            synchronize(feats.device)
     with obs.span("cluster/kmeans"):
         labels, cent = kmeans(feats, cfg.num_clusters, key,
                               assign_fn=assign_fn)
+        synchronize(feats.device)
     return labels, cent, feats

@@ -13,8 +13,8 @@ a round reads a device value back or copies a host value to the device,
 so the loop queues its rounds without waiting for the card, as the JAX
 package's ``lax.scan`` does.  ``simulate_rounds_reference`` is its
 exact-equality oracle: the per-cluster winner loop and a fetch every
-round.  The fleet-dynamics round (fault model, staleness) is not ported
-yet (ROADMAP.md, queue 1: fleet dynamics).
+round.  With fleet dynamics on, the live loop's round step also runs
+the fault model (``_round_body_dyn``).
 """
 from __future__ import annotations
 
@@ -32,6 +32,7 @@ from repro_torch.core import schemes as SCH
 from repro_torch.core import selection as SEL
 from repro_torch.core.virtual_dataset import virtual_dataset_gap_device
 from repro_torch.device import resolve_device
+from repro_torch.sim import dynamics as DYN
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -94,6 +95,31 @@ def _round_body(state: SEL.SelectionState, key, cfg: FLConfig,
     return new_state, win, metrics
 
 
+def _round_body_dyn(state: SEL.SelectionState, dyn_state, key, dyn_key,
+                    cfg: FLConfig, count_hists, global_hist,
+                    winners_impl: str):
+    """The dynamics-composed round: selection sees the churn process's
+    round-start availability, then the fault model (under ``fold_in(
+    dyn_key, 0)``) classifies every winner and the staleness counter
+    ages.  The energy/history update stays winner-based (a dropped
+    client still spent its round's budget)."""
+    new_state, win, metrics = _round_body(
+        state, key, cfg, count_hists, global_hist, winners_impl,
+        avail=dyn_state.avail)
+    outcome, lat, new_avail = DYN.fault_step(
+        cfg, rng.fold_in(dyn_key, 0), win, dyn_state.avail, state.residual,
+        state.local_sizes)
+    stale = DYN.update_staleness(state.staleness, outcome)
+    new_state = dataclasses.replace(new_state, staleness=stale)
+    metrics = dict(metrics)
+    metrics.update(DYN.outcome_metrics(outcome, stale))
+    nwin = torch.clamp(metrics["num_winners"], min=1)
+    metrics["mean_latency"] = torch.where(win, lat, 0.0).sum() / nwin
+    metrics["num_avail"] = new_avail.sum()
+    return (new_state, DYN.DynamicsState(avail=new_avail), win, outcome,
+            metrics)
+
+
 def _hists(count_hists, global_hist, device):
     """The label histograms as float32 tensors on ``device`` (or None)."""
     def put(a):
@@ -111,12 +137,21 @@ def make_round_step(cfg: FLConfig,
     live FL loop.  ``count_hists`` is the (N, num_classes) per-client
     label-count matrix; with it the vds-gap is computed on the device,
     otherwise it logs 0.  The histograms are cast to float32 and moved to
-    ``device`` once, here."""
-    if dynamics:
-        raise NotImplementedError(
-            "the fleet-dynamics round step is not ported yet (ROADMAP.md, "
-            "queue 1: fleet dynamics)")
+    ``device`` once, here.
+
+    With ``dynamics=True`` the step also runs the fleet fault model
+    (``sim/dynamics.py``) and takes ``(state, dyn_state, key, dyn_key)
+    -> (new_state, new_dyn_state, win, outcome, metrics)``; ``dyn_key``
+    comes from the server's dedicated dynamics chain."""
     ch, gh = _hists(count_hists, global_hist, resolve_device(device))
+
+    if dynamics:
+        def round_step_dyn(state: SEL.SelectionState, dyn_state, key,
+                           dyn_key):
+            return _round_body_dyn(state, dyn_state, key, dyn_key, cfg, ch,
+                                   gh, winners_impl)
+
+        return round_step_dyn
 
     def round_step(state: SEL.SelectionState, key):
         return _round_body(state, key, cfg, ch, gh, winners_impl)

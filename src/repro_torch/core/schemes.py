@@ -25,6 +25,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import rng
@@ -285,3 +286,26 @@ register(SelectionScheme(
     update_state=_longterm_update,
     stateful=True,
 ))
+
+
+# ----------------------------------------------------------------------
+# host-side hooks (server dynamics plumbing)
+# ----------------------------------------------------------------------
+
+def host_replacement_mask(cfg: FLConfig, host_sizes: np.ndarray
+                          ) -> Optional[np.ndarray]:
+    """Scheme-aware filter for the server's retry-or-replace candidate
+    pool (``FederatedServer._resample_dropped``): fedcs substitutes must
+    themselves be plausibly deadline-feasible, or the replacement just
+    turns a DROPPED slot into a LATE one.  On the host and deterministic
+    (the latency model's size-driven compute term at the fastest
+    straggler factor), so replacement draws stay a pure function of
+    (seed, outcome stream).  None = no scheme constraint."""
+    if cfg.scheme_select != "fedcs":
+        return None
+    sizes = host_sizes.astype(np.float64)
+    compute = sizes / max(sizes.mean(), 1.0)
+    # fastest profile factor: 1.0 base x the 0.9 jitter floor (energy),
+    # 0.5 (uniform); 'lognormal'/'none' can reach ~0 slowdown -> 1.0x
+    floor = {"energy": 0.9, "uniform": 0.5}.get(cfg.straggler_profile, 0.0)
+    return compute * floor + 0.05 <= fedcs_deadline(cfg)

@@ -1,6 +1,6 @@
-"""Federated server: the full Algorithm 1 loop (the synchronous,
-undefended, dynamics-free path) for every ``cfg.scheme`` and every
-``cfg.scheme_select`` of the registry.
+"""Federated server: the full Algorithm 1 loop for every ``cfg.scheme``
+and every ``cfg.scheme_select`` of the registry, with fleet dynamics,
+checkpoints and the event stream.
 
 Stage 1  (once)    : clustering of all clients by their initial gradients
                       (``weights_cluster_random``: by one-epoch weight
@@ -12,19 +12,36 @@ Stage 3  (per round): winners run I local epochs, the server aggregates
                       w_{t+1} = sum_k p_k w^k_{t+1} (FedAvg or FedProx).
 
 The round loop fetches only the winner mask every round (stage 3's
-host-seeded shuffles need it); the round metrics and the eval pair stay
-on the device in a pending buffer and are fetched in one batched copy at
-logging boundaries, with the scheme's own round scalars (FedCS's
-predicted latency, the long-term auction's budget ledger), which each
-RoundLog keeps in ``scheme_metrics``.  Fleet dynamics, the defended
-aggregation path, the divergence watchdog and checkpoints are not ported
-yet (ROADMAP.md, queue 1): a config that would need them raises
-``NotImplementedError`` instead of silently running the plain path.
+host-seeded shuffles need it), through the counted ``obs.device_get``;
+the round metrics and the eval pair stay on the device in a pending
+buffer and are fetched in one batched copy at logging boundaries, where
+each round becomes a RoundLog and a ``round`` row of the event stream
+(``repro_torch.obs``).
+
+With fleet dynamics on (``cfg.dynamics_enabled``: any churn or a positive
+deadline) the round step also runs the fault model
+(``sim/dynamics.py``) and aggregation degrades gracefully: only
+COMPLETED winners, plus retry-or-replace substitutes for DROPPED ones,
+aggregate synchronously (FedAvg re-weights over whatever cohort it is
+handed); a zero-survivor round leaves the params untouched and logs a
+``round/empty`` dynamics event.  Under ``--aggregation buffered`` LATE
+winners still train, their aggregate lands in a buffer as a delta, and
+it folds into the global model FedBuff-style at goal-count or timeout
+boundaries.  With dynamics off both aggregation modes take the plain
+path, so churn-0 runs stay bit-identical.
+
+``run(checkpoint_every=, checkpoint_path=, resume=)`` snapshots and
+restores the server in the JAX package's checkpoint format
+(``checkpoint/io.py``).  The defended aggregation path and the divergence
+watchdog are not ported yet (ROADMAP.md, queue 1): a config that would
+need them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -39,8 +56,9 @@ from repro_torch.core import selection as SEL
 from repro_torch.core.adapters import ModelAdapter
 from repro_torch.core.virtual_dataset import client_count_histograms
 from repro_torch.data.partition import global_histogram
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, synchronize
 from repro_torch.optim import apply_updates, sgd
+from repro_torch.sim import dynamics as DYN
 from repro_torch.sim.runtime import make_runtime
 
 # round scalars the scheme zoo adds (fairness_hist_std from every scheme,
@@ -49,6 +67,11 @@ from repro_torch.sim.runtime import make_runtime
 SCHEME_METRIC_KEYS = ("fairness_hist_std", "budget_spent",
                       "budget_remaining", "budget_queue",
                       "pred_latency_mean", "num_feasible")
+
+# round scalars the dynamics round step adds, mirrored into the round row
+DYN_METRIC_KEYS = ("num_completed", "num_late", "num_dropped",
+                   "staleness_mean", "staleness_max", "mean_latency",
+                   "num_avail")
 
 
 @dataclass
@@ -69,20 +92,35 @@ class RoundLog:
 
 @dataclass
 class _PendingRound:
-    """A dispatched round whose device scalars are not fetched yet."""
+    """A dispatched round whose device scalars are not fetched yet;
+    ``dyn`` holds the host-side dynamics scalars (replacements, buffer
+    depth), None with dynamics off."""
 
     round: int
     selected: np.ndarray
     metrics: Dict[str, torch.Tensor]
     eval_pair: Optional[tuple]
+    dyn: Optional[Dict[str, float]] = None
+
+
+@dataclass
+class _BufferedUpdate:
+    """One late update in the FedBuff buffer: ``delta`` is the late
+    sub-cohort's aggregated param delta against the globals it trained
+    from, ``mass`` its data mass (sum of local sizes), ``round`` the
+    dispatch round and ``arrival`` the first round the server can fold
+    it (dispatch + 1: late means after the deadline)."""
+
+    delta: Dict[str, torch.Tensor]
+    mass: float
+    round: int
+    arrival: int
 
 
 def check_supported(cfg: FLConfig) -> None:
     """Refuse every config the JAX server would route to code the port
     does not have yet (ROADMAP.md, queue 1)."""
     unported = []
-    if cfg.dynamics_enabled:
-        unported.append("fleet dynamics (churn/deadline)")
     if cfg.defended:
         unported.append("the defended aggregation path (defense/attack)")
     if cfg.watchdog_enabled:
@@ -90,6 +128,15 @@ def check_supported(cfg: FLConfig) -> None:
     if unported:
         raise NotImplementedError(
             "not ported yet (ROADMAP.md, queue 1): " + ", ".join(unported))
+
+
+def _key_words(key: torch.Tensor) -> np.ndarray:
+    """A key as the uint32 pair JAX stores (the port keeps int64)."""
+    return key.numpy().astype(np.uint32)
+
+
+def _key_from_words(words: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(words).astype(np.int64))
 
 
 class FederatedServer:
@@ -109,12 +156,16 @@ class FederatedServer:
         self.logs: List[RoundLog] = []
         self.runtime = make_runtime(cfg, adapter, x, y, clients, self.device)
         n = cfg.num_clients
+        self.dynamics = cfg.dynamics_enabled
         self.state = SEL.SelectionState(
             clusters=torch.zeros(n, dtype=torch.int32, device=self.device),
             residual=EN.init_energy(cfg, self._next_key(), self.device),
             history=torch.zeros(n, dtype=torch.int32, device=self.device),
             local_sizes=torch.tensor([c.size for c in clients],
                                      dtype=torch.int32, device=self.device),
+            # None with dynamics off, so the plain round is unchanged
+            staleness=(torch.zeros(n, dtype=torch.int32, device=self.device)
+                       if self.dynamics else None),
             scheme_state=SCH.init_scheme_state(cfg, self.device),
         )
         self.global_hist = global_histogram(y, cfg.num_classes)
@@ -123,17 +174,42 @@ class FederatedServer:
         self._round_step = RND.make_round_step(
             cfg, client_count_histograms(self.client_labels,
                                          cfg.num_classes),
-            self.global_hist, device=self.device)
+            self.global_hist, dynamics=self.dynamics, device=self.device)
+        if self.dynamics:
+            # the dedicated dynamics chain: churn-0 runs consume the
+            # selection chain exactly as plain runs do
+            self._dyn_key = DYN.dynamics_key(cfg)
+            self.dyn_state = DYN.init_dynamics(cfg, self.device)
+            # host mirrors the replacement sampler reads: round-start
+            # availability and (after stage 1) cluster ids
+            self._host_avail = np.ones((n,), bool)
+            self._host_clusters = np.zeros((n,), np.int64)
+            self._host_sizes = np.asarray([c.size for c in clients],
+                                          np.int64)
+            # replacement draws come from their own host rng chain, so
+            # they are a pure function of (seed, outcome stream) and
+            # identical across cohort runtimes
+            self._dyn_rng = np.random.default_rng(
+                np.uint32(cfg.seed) + 0x5D7A)
+            m = SCH.host_replacement_mask(cfg, self._host_sizes)
+            self._host_feasible = (np.ones((n,), bool)
+                                   if m is None else np.asarray(m, bool))
+            self.outcome_log: List[np.ndarray] = []   # per-round codes
+            self._late_buffer: List[_BufferedUpdate] = []
         # host mirror of participation counts (seeds stage-3 shuffles)
         self._host_history = np.zeros((n,), np.int64)
-        self._test = {k: torch.tensor(np.asarray(v), device=self.device)
-                      for k, v in test_batch.items()}
+        self._test = obs.device_put(
+            {k: np.asarray(v) for k, v in test_batch.items()}, self.device)
         self._pending: List[_PendingRound] = []
         self._last_eval = (float("nan"), float("nan"))
 
     # ------------------------------------------------------------------
     def _next_key(self):
         self.key, k = rng.split(self.key)
+        return k
+
+    def _next_dyn_key(self):
+        self._dyn_key, k = rng.split(self._dyn_key)
         return k
 
     def cluster(self) -> None:
@@ -160,6 +236,9 @@ class FederatedServer:
             feature_kind=feature_kind, local_steps_fn=self._weight_delta,
             assign_fn=self.assign_fn, precomputed_feats=feats)
         self.state.clusters = labels.to(torch.int32)
+        if self.dynamics:
+            self._host_clusters = np.asarray(obs.device_get(labels),
+                                             np.int64)
 
     def _weight_delta(self, params, x, y, key) -> torch.Tensor:
         """The Wang et al. feature: the flat model delta after one
@@ -188,36 +267,192 @@ class FederatedServer:
         return (self.adapter.accuracy(params, self._test),
                 self.adapter.loss(params, self._test))
 
-    def _dispatch_round(self, t: int, eval_now: bool) -> None:
-        """Dispatch one FL round; only the winner mask is fetched."""
-        with obs.span("round/select"):
-            new_state, win, metrics = self._round_step(self.state,
-                                                       self._next_key())
-            sel_idx = np.nonzero(win.cpu().numpy())[0]
-        with obs.span("round/train"):
-            new_params = self.runtime.train_cohort(
-                self.params, sel_idx, self._host_history)
-        if new_params is not None:
-            self.params = new_params
-        # else: a zero-winner round leaves the params unchanged
-        self.state = new_state
-        self._host_history[sel_idx] += 1
-        ev = self._eval_step(self.params) if eval_now else None
-        self._pending.append(_PendingRound(round=t, selected=sel_idx,
-                                           metrics=metrics, eval_pair=ev))
+    def _dispatch_round(self, t: int, eval_now: bool,
+                        final: bool = False) -> None:
+        """Dispatch one FL round; only the winner mask is fetched.  With
+        fleet dynamics on, :meth:`_dispatch_round_dyn` does it."""
+        if self.dynamics:
+            return self._dispatch_round_dyn(t, eval_now, final)
+        with obs.span("round/dispatch", round=t):
+            with obs.span("round/select", round=t):
+                new_state, win, metrics = self._round_step(
+                    self.state, self._next_key())
+                # the one per-round fetch (explicit, counted)
+                sel_idx = np.nonzero(obs.device_get(win))[0]
+            with obs.span("round/train", round=t,
+                          cohort=int(sel_idx.size)):
+                new_params = self.runtime.train_cohort(
+                    self.params, sel_idx, self._host_history)
+            if new_params is not None:
+                self.params = new_params
+            else:
+                # zero-winner (or all-zero-size) round: params pass
+                # through unchanged and the event is visible in the log
+                self._log_empty_round(t)
+            self.state = new_state
+            self._host_history[sel_idx] += 1
+            self._pending.append(_PendingRound(
+                round=t, selected=sel_idx, metrics=metrics,
+                eval_pair=self._maybe_eval(t, eval_now)))
+
+    def _maybe_eval(self, t: int, eval_now: bool) -> Optional[tuple]:
+        if not eval_now:
+            return None
+        with obs.span("round/eval", round=t):
+            return self._eval_step(self.params)
+
+    # -- fleet dynamics ------------------------------------------------
+    def _log_empty_round(self, t: int) -> None:
+        """A round whose synchronous aggregate had no survivors: params
+        pass through unchanged (never a division by a zero weight sum)
+        and the event lands in the log for the schema validator."""
+        obs.OBS.counter("round/empty")
+        obs.OBS.event("dynamics", name="round/empty", round=t)
+
+    def _resample_dropped(self, dropped: np.ndarray,
+                          win_np: np.ndarray) -> np.ndarray:
+        """Retry-or-replace: each DROPPED winner's slot is refilled by a
+        uniform draw among its cluster's currently-available non-winners
+        with local data (an empty candidate pool forfeits the slot),
+        restricted under ``--scheme-select fedcs`` to plausibly
+        deadline-feasible clients (``schemes.host_replacement_mask``).
+        Draws come from the dedicated host dynamics rng, so picks are a
+        pure function of (seed, outcome stream), identical across cohort
+        runtimes and to the JAX package's."""
+        chosen: List[int] = []
+        taken = win_np.copy()
+        for gid in dropped:
+            cand = np.nonzero(
+                (self._host_clusters == self._host_clusters[int(gid)])
+                & self._host_avail & ~taken & (self._host_sizes > 0)
+                & self._host_feasible)[0]
+            if cand.size == 0:
+                continue
+            pick = int(cand[self._dyn_rng.integers(cand.size)])
+            taken[pick] = True
+            chosen.append(pick)
+        return np.asarray(chosen, np.int64)
+
+    def _maybe_fold_buffer(self, t: int, force: bool = False) -> int:
+        """Fold the arrived late updates into the global model when the
+        FedBuff boundary hits: goal-count reached, the oldest arrived
+        entry timed out, or ``force`` (the final round folds whatever has
+        arrived; updates still in flight when the run ends are lost).
+        Each entry's delta is scaled by its staleness discount times its
+        share of the folded data mass: a staleness-weighted FedAvg over
+        the buffer."""
+        arrived = [e for e in self._late_buffer if e.arrival <= t]
+        if not arrived:
+            return 0
+        oldest = min(e.round for e in arrived)
+        if not (force or len(arrived) >= self.cfg.buffer_goal
+                or t - oldest >= self.cfg.buffer_timeout):
+            return 0
+        total = sum(e.mass for e in arrived)
+        with obs.span("round/buffer_fold", round=t, entries=len(arrived)):
+            p = self.params
+            for e in arrived:
+                # the coefficient enters as a float32 scalar, as in JAX
+                c = float(np.float32(
+                    DYN.staleness_weight(self.cfg, t - e.round)
+                    * e.mass / total))
+                p = {k: v + c * e.delta[k] for k, v in p.items()}
+            self.params = p
+        self._late_buffer = [e for e in self._late_buffer if e.arrival > t]
+        obs.OBS.counter("dyn/buffer_folds")
+        obs.OBS.event("dynamics", name="buffer/fold", round=t,
+                      entries=len(arrived), oldest=oldest)
+        return len(arrived)
+
+    def _dispatch_round_dyn(self, t: int, eval_now: bool,
+                            final: bool = False) -> None:
+        """The dynamics-aware dispatch: one round step (selection + fault
+        model), then aggregation over the outcome mask — COMPLETED
+        winners plus retry-or-replace substitutes aggregate now, LATE
+        winners feed the buffered path, DROPPED ones only burned energy.
+        The extra host traffic over the plain loop is the outcome codes
+        and the next availability mask, fetched with the winner mask in
+        one counted copy."""
+        cfg = self.cfg
+        with obs.span("round/dispatch", round=t):
+            with obs.span("round/select", round=t):
+                (new_state, new_dyn, win, outcome,
+                 metrics) = self._round_step(self.state, self.dyn_state,
+                                             self._next_key(),
+                                             self._next_dyn_key())
+                win_np, out_np, next_avail = obs.device_get(
+                    (win, outcome, new_dyn.avail))
+                sel_idx = np.nonzero(win_np)[0]
+            completed, late, dropped = DYN.split_outcomes(sel_idx, out_np)
+            self.outcome_log.append(out_np[sel_idx])
+            repl = (self._resample_dropped(dropped, win_np)
+                    if cfg.replace_dropped and dropped.size
+                    else np.empty((0,), np.int64))
+            train_idx = np.concatenate([completed.astype(np.int64), repl])
+            dyn_row: Dict[str, float] = {"num_replaced": int(repl.size)}
+            if dropped.size:
+                obs.OBS.counter("dyn/dropped", int(dropped.size))
+            if late.size:
+                obs.OBS.counter("dyn/deadline_miss", int(late.size))
+            if repl.size:
+                obs.OBS.counter("dyn/replaced", int(repl.size))
+
+            params0 = self.params
+            buffered = cfg.aggregation == "buffered"
+            if buffered and late.size:
+                # the late sub-cohort trains from the same globals it was
+                # dispatched with; its aggregate becomes a buffered delta
+                with obs.span("round/train_late", round=t,
+                              cohort=int(late.size)):
+                    late_agg = self.runtime.train_cohort(
+                        params0, late, self._host_history)
+                if late_agg is not None:
+                    self._late_buffer.append(_BufferedUpdate(
+                        delta={k: late_agg[k] - params0[k]
+                               for k in params0},
+                        mass=float(self._host_sizes[late].sum()),
+                        round=t, arrival=t + 1))
+            with obs.span("round/train", round=t,
+                          cohort=int(train_idx.size)):
+                new_params = self.runtime.train_cohort(
+                    params0, train_idx, self._host_history)
+            if new_params is not None:
+                self.params = new_params
+            else:
+                self._log_empty_round(t)
+
+            self.state = new_state
+            self.dyn_state = new_dyn
+            self._host_avail = np.asarray(next_avail, bool)
+            # the shuffle-seed mirror advances for every client whose
+            # local pass ran this round (survivors, substitutes and,
+            # buffered, the late trainers); the device-side history keeps
+            # the control plane's commitment accounting
+            trained = (np.concatenate([train_idx, late.astype(np.int64)])
+                       if buffered else train_idx)
+            self._host_history[trained] += 1
+            folded = self._maybe_fold_buffer(t, force=final)
+            dyn_row["buffer_len"] = len(self._late_buffer)
+            dyn_row["buffer_folded"] = folded
+            self._pending.append(_PendingRound(
+                round=t, selected=sel_idx, metrics=metrics,
+                eval_pair=self._maybe_eval(t, eval_now), dyn=dyn_row))
 
     def _flush_pending(self) -> None:
-        """Fetch every pending round's scalars in one copy and turn each
-        entry into a RoundLog."""
+        """Fetch every pending round's scalars in one counted copy, turn
+        each entry into a RoundLog and a ``round`` row of the event
+        stream, and flush the stream (the logging boundary)."""
         if not self._pending:
             return
-        flat = []
-        for p in self._pending:
-            flat.extend(p.metrics.values())
-            if p.eval_pair is not None:
-                flat.extend(p.eval_pair)
-        host = torch.stack([v.float().reshape(()) for v in flat]).cpu()
-        vals = iter(host.tolist())
+        with obs.span("round/drain", rounds=len(self._pending),
+                      first=self._pending[0].round):
+            flat = []
+            for p in self._pending:
+                flat.extend(p.metrics.values())
+                if p.eval_pair is not None:
+                    flat.extend(p.eval_pair)
+            vals = iter(obs.device_get(torch.stack(
+                [v.float().reshape(()) for v in flat])).tolist())
         for p in self._pending:
             m = {k: next(vals) for k in p.metrics}
             skipped = p.eval_pair is None
@@ -225,16 +460,107 @@ class FederatedServer:
                          else (float("nan"), float("nan")))
             if not skipped:
                 self._last_eval = (acc, loss)
+                if not (np.isfinite(acc) and np.isfinite(loss)):
+                    # the eval ran and came back non-finite: the model
+                    # diverged, which is not an off-cadence skip
+                    obs.OBS.counter("round/diverged")
+                    obs.OBS.event("defense", name="round/diverged",
+                                  round=p.round)
             self.total_client_reward += m["client_reward_sum"]
+            scheme = {k: m[k] for k in SCHEME_METRIC_KEYS if k in m}
             self.logs.append(RoundLog(
                 round=p.round, selected=p.selected, test_acc=acc,
                 test_loss=loss, energy_std=m["energy_std"],
                 mean_bid=m["mean_bid"], server_reward=m["server_reward"],
                 client_reward_sum=m["client_reward_sum"],
                 vds_gap=m["vds_gap"], eval_skipped=skipped,
-                scheme_metrics={k: m[k] for k in SCHEME_METRIC_KEYS
-                                if k in m}))
+                scheme_metrics=scheme))
+            # the round's series row: host floats from the fetch above
+            extra = {k: m[k] for k in DYN_METRIC_KEYS if k in m}
+            extra.update(scheme)
+            if p.dyn is not None:
+                extra.update({k: float(v) for k, v in p.dyn.items()})
+            obs.OBS.record_round(
+                p.round, test_acc=acc, test_loss=loss,
+                energy_std=m["energy_std"], mean_bid=m["mean_bid"],
+                server_reward=m["server_reward"],
+                client_reward_sum=m["client_reward_sum"],
+                vds_gap=m["vds_gap"], num_selected=int(p.selected.size),
+                eval_skipped=skipped, **extra)
         self._pending.clear()
+        obs.flush()        # the logging boundary: sinks see I/O only here
+
+    # -- crash tolerance -----------------------------------------------
+    def _ckpt_tree(self) -> Dict[str, Any]:
+        """Everything array-valued the round loop's future depends on, in
+        the JAX server's layout (its key strings; keys as uint32 pairs,
+        the history mirror as int32).  The in-flight late buffer is not
+        saved: a crash loses updates that never folded into the model,
+        FedBuff's semantics for a server restart."""
+        tree: Dict[str, Any] = {
+            "params": self.params, "state": self.state,
+            "key": _key_words(self.key),
+            "host_history": self._host_history.astype(np.int32)}
+        if self.dynamics:
+            tree["dyn_avail"] = self.dyn_state.avail
+            tree["dyn_key"] = _key_words(self._dyn_key)
+        return tree
+
+    def save_checkpoint(self, path: str, step: int) -> None:
+        """Persist params and selection/dynamics state so a crashed run
+        resumes from the last boundary; the reward tally, the selection
+        scheme and the replacement sampler's host rng state ride the
+        manifest."""
+        from repro_torch.checkpoint import io as CKPT
+        extra: Dict[str, Any] = {
+            "total_client_reward": self.total_client_reward,
+            "scheme_select": self.cfg.scheme_select}
+        if self.dynamics:
+            extra["dyn_rng_state"] = self._dyn_rng.bit_generator.state
+        with obs.span("run/checkpoint", step=step):
+            CKPT.save(path, self._ckpt_tree(), step=step, extra=extra)
+
+    def load_checkpoint(self, path: str) -> int:
+        """Restore a :meth:`save_checkpoint` snapshot (the port's or the
+        JAX server's) and return the next round index.  Stage 1 must not
+        run again afterwards: the restored key already reflects its chain
+        consumption and the cluster ids live in the restored state.
+
+        Raises ValueError when the manifest records another selection
+        scheme than ``cfg.scheme_select`` (checked first: the scheme
+        state and the key chain are scheme-shaped)."""
+        from repro_torch.checkpoint import io as CKPT
+        manifest = path.removesuffix(".npz") + ".json"
+        extra: Dict[str, Any] = {}
+        if os.path.exists(manifest):
+            with open(manifest) as f:
+                extra = json.load(f).get("extra") or {}
+            saved = extra.get("scheme_select", "paper")
+            if saved != self.cfg.scheme_select:
+                raise ValueError(
+                    f"checkpoint {path!r} was written by selection scheme "
+                    f"{saved!r} but this run uses --scheme-select "
+                    f"{self.cfg.scheme_select!r}; resume with "
+                    f"--scheme-select {saved} or start a fresh run")
+        with obs.span("run/restore"):
+            tree, step = CKPT.restore(path, self._ckpt_tree())
+        self.params = tree["params"]
+        self.state = tree["state"]
+        self.key = _key_from_words(tree["key"])
+        self._host_history = np.asarray(tree["host_history"], np.int64)
+        if self.dynamics:
+            self.dyn_state = DYN.DynamicsState(avail=tree["dyn_avail"])
+            self._dyn_key = _key_from_words(tree["dyn_key"])
+            avail, clusters = obs.device_get(
+                (tree["dyn_avail"], self.state.clusters))
+            self._host_avail = np.asarray(avail, bool)
+            self._host_clusters = np.asarray(clusters, np.int64)
+        self.total_client_reward = float(
+            extra.get("total_client_reward", 0.0))
+        st = extra.get("dyn_rng_state")
+        if self.dynamics and st is not None:
+            self._dyn_rng.bit_generator.state = st
+        return step
 
     def run_round(self, t: int) -> RoundLog:
         """One synchronous FL round (dispatch + immediate flush)."""
@@ -242,21 +568,46 @@ class FederatedServer:
         self._flush_pending()
         return self.logs[-1]
 
-    def run(self, rounds: Optional[int] = None,
-            verbose: bool = False) -> List[RoundLog]:
-        """Stage 1, then ``rounds`` rounds (default ``cfg.rounds``).
+    def run(self, rounds: Optional[int] = None, verbose: bool = False,
+            audit_sync: bool = False, audit_warm_rounds: int = 2,
+            checkpoint_every: int = 0,
+            checkpoint_path: Optional[str] = None,
+            resume: bool = False) -> List[RoundLog]:
+        """Stage 1, then rounds up to ``rounds`` (default ``cfg.rounds``).
         ``verbose`` prints a progress line every 5 rounds with the last
-        drained eval; it never changes the eval cadence."""
-        with obs.span("run/cluster"):
-            self.cluster()
+        drained eval; it never changes the eval cadence.  ``audit_sync``
+        runs every dispatch from round ``audit_warm_rounds`` on under the
+        sync auditor (``obs.sync_audit``): an implicit synchronisation
+        with the card raises at the offending op.
+
+        ``checkpoint_every`` > 0 with a ``checkpoint_path`` snapshots the
+        server every that many rounds; ``resume`` restores an existing
+        snapshot and skips stage 1 (the restored state carries its
+        result), so the remaining rounds run as in an uninterrupted
+        run."""
+        start = 0
+        if resume and checkpoint_path is not None and os.path.exists(
+                checkpoint_path.removesuffix(".npz") + ".npz"):
+            start = self.load_checkpoint(checkpoint_path)
+            obs.log(f"resumed checkpoint {checkpoint_path!r} "
+                    f"at round {start}")
+        if start == 0:
+            with obs.span("run/cluster", scheme=self.cfg.scheme):
+                self.cluster()
+                synchronize(self.device)
         warmup = getattr(self.runtime, "warmup", None)
         if warmup is not None:    # device runtime: meet every class shape
             with obs.span("run/warmup"):
                 warmup(self.params)
         T = rounds if rounds is not None else self.cfg.rounds
-        for t in range(T):
+        for t in range(start, T):
             final = t == T - 1
-            self._dispatch_round(t, self._eval_due(t, final=final))
+            eval_now = self._eval_due(t, final=final)
+            if audit_sync and t >= audit_warm_rounds:
+                with obs.sync_audit():
+                    self._dispatch_round(t, eval_now, final=final)
+            else:
+                self._dispatch_round(t, eval_now, final=final)
             if verbose and (t % 5 == 0 or final):
                 self._flush_pending()
                 log = self.logs[-1]
@@ -265,5 +616,11 @@ class FederatedServer:
                         f"E_std={log.energy_std:.3f} "
                         f"bid={log.mean_bid:.3f} "
                         f"vds_gap={log.vds_gap:.3f}")
+            if (checkpoint_every > 0 and checkpoint_path is not None
+                    and (t + 1) % checkpoint_every == 0 and not final):
+                # flush first so the log stream is consistent up to the
+                # snapshot boundary a resumed run continues from
+                self._flush_pending()
+                self.save_checkpoint(checkpoint_path, t + 1)
         self._flush_pending()
         return self.logs

@@ -15,3 +15,11 @@ def resolve_device(device="cuda") -> torch.device:
             f"device {str(device)!r} asked for, but torch sees no CUDA "
             "device (pass device='cpu', or --device cpu, to run on the CPU)")
     return dev
+
+
+def synchronize(device) -> None:
+    """Wait for the work queued on ``device`` (a no-op on the CPU).  The
+    stage-1 spans end with it, so their host time holds the device work
+    they queued."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)

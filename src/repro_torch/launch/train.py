@@ -17,6 +17,13 @@ selection``.
     (kernel loading, allocator growth); ``--no-warm-rerun`` skips the
     second run and reports the first.
 
+Fleet dynamics (``--churn``, ``--deadline``, ``--straggler-profile``,
+``--aggregation buffered``, ``--buffer-goal``, ``--buffer-timeout``),
+checkpoints (``--checkpoint-every``, ``--checkpoint-path``, ``--resume``)
+and the event stream (``--log-jsonl``, ``--log-csv``, validated by
+``python -m repro_torch.obs.schema``; ``--audit-sync``, ``--profile-dir``)
+run as in the JAX package.
+
 It takes the JAX CLI's flags with the same defaults (``python -m
 repro.launch.train``), plus ``--device``:
 
@@ -25,6 +32,9 @@ repro.launch.train``), plus ``--device``:
   python -m repro_torch.launch.train --mode paper --runtime device
   python -m repro_torch.launch.train --mode paper --scheme random
   python -m repro_torch.launch.train --mode selection --clients 1000000
+  python -m repro_torch.launch.train --mode paper --runtime vectorized \
+      --churn 0.1 --deadline 1.5 --aggregation buffered \
+      --log-jsonl runs/events.jsonl --audit-sync
 
 The run is on the GPU unless ``--device cpu`` is given; ``cuda`` with no
 GPU raises.  TF32 is switched off for matmuls and cuDNN, so float32 stays
@@ -40,6 +50,7 @@ import os
 import time
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import obs, rng
@@ -50,14 +61,13 @@ from repro_torch.core.server import FederatedServer
 from repro_torch.data.partition import partition_clients
 from repro_torch.data.synthetic import make_image_dataset
 from repro_torch.device import resolve_device
+from repro_torch.sim import dynamics as DYN
 
 # flags of the JAX CLI whose features the port does not have yet
 UNPORTED_FLAGS = (
-    "arch", "cohort_devices", "churn", "deadline", "aggregation",
-    "buffer_goal", "buffer_timeout", "adversary_frac", "attack",
-    "attack_scale", "defense", "defense_mode", "reputation_mode",
-    "watchdog", "watchdog_ring", "checkpoint_every", "checkpoint_path",
-    "resume", "log_jsonl", "log_csv", "profile_dir", "audit_sync")
+    "arch", "cohort_devices", "adversary_frac", "attack", "attack_scale",
+    "defense", "defense_mode", "reputation_mode", "watchdog",
+    "watchdog_ring")
 
 
 def set_float32_precision() -> None:
@@ -76,7 +86,10 @@ def run_paper(args, device: torch.device, assign_fn=None) -> dict:
         fedcs_deadline=args.fedcs_deadline, aggregator=args.aggregator,
         init_energy_mode=args.energy_mode, runtime=args.runtime,
         eval_every=args.eval_every, seed=args.seed,
-        straggler_profile=args.straggler_profile)
+        churn=args.churn, deadline=args.deadline,
+        straggler_profile=args.straggler_profile,
+        aggregation=args.aggregation, buffer_goal=args.buffer_goal,
+        buffer_timeout=args.buffer_timeout)
     train, test = make_image_dataset(args.dataset, n_train=args.pool,
                                      n_test=args.pool // 6, seed=args.seed,
                                      device=device)
@@ -87,8 +100,11 @@ def run_paper(args, device: torch.device, assign_fn=None) -> dict:
                           {"x": test.x[:ntest], "y": test.y[:ntest]},
                           assign_fn=assign_fn, device=device)
     t0 = time.time()
-    logs = srv.run(verbose=not args.quiet)
-    return {
+    logs = srv.run(verbose=not args.quiet, audit_sync=args.audit_sync,
+                   checkpoint_every=args.checkpoint_every,
+                   checkpoint_path=args.checkpoint_path,
+                   resume=args.resume)
+    out = {
         "mode": "paper", "scheme": args.scheme,
         "scheme_select": args.scheme_select, "nu": args.nu,
         "aggregator": args.aggregator, "dataset": args.dataset,
@@ -107,6 +123,17 @@ def run_paper(args, device: torch.device, assign_fn=None) -> dict:
                              for v in srv.params.values()),
         "wall_s": time.time() - t0,
     }
+    if srv.dynamics:
+        codes = (np.concatenate(srv.outcome_log) if srv.outcome_log
+                 else np.zeros((0,), np.int32))
+        out["dynamics"] = {
+            "churn": cfg.churn, "deadline": cfg.deadline,
+            "aggregation": cfg.aggregation,
+            "num_completed": int((codes == DYN.COMPLETED).sum()),
+            "num_late": int((codes == DYN.LATE).sum()),
+            "num_dropped": int((codes == DYN.DROPPED).sum()),
+        }
+    return out
 
 
 def run_selection(args, device: torch.device) -> dict:
@@ -125,10 +152,11 @@ def run_selection(args, device: torch.device) -> dict:
     with obs.span("selection/cold"):
         final, metrics, _ = RND.simulate_rounds(state, cfg, kr, args.rounds)
         names = list(metrics)
-        # one device-to-host copy for all T rounds (int metrics are exact
-        # in float64)
-        host = (torch.stack([metrics[k].double() for k in names]).cpu()
-                .numpy() if names else None)
+        # one counted device-to-host copy for all T rounds (int metrics
+        # are exact in float64)
+        host = (obs.device_get(torch.stack([metrics[k].double()
+                                            for k in names]))
+                if names else None)
         metrics = {k: host[i] for i, k in enumerate(names)}
     cold = time.time() - t0
     if args.no_warm_rerun:
@@ -161,6 +189,21 @@ def run_selection(args, device: torch.device) -> dict:
     }
     timing = "incl. first use" if compile_s is None \
         else f"warm; compile={compile_s:.2f}s"
+    # mirror the fetched metric columns into the obs round series (host
+    # floats already in hand: no extra device traffic)
+    if obs.OBS.enabled:
+        for t in range(args.rounds):
+            obs.OBS.record_round(
+                t, energy_std=out["energy_std"][t],
+                mean_bid=out["mean_bid"][t],
+                server_reward=out["server_reward"][t],
+                client_reward_sum=out["client_reward_sum"][t],
+                num_winners=out["num_winners"][t],
+                fairness_hist_std=float(metrics["fairness_hist_std"][t]),
+                **{k: float(metrics[k][t]) for k in
+                   ("budget_spent", "budget_remaining", "budget_queue")
+                   if k in metrics})
+        obs.flush()
     obs.log(f"selection-only: N={args.clients} T={args.rounds} "
             f"{out['rounds_per_s']:.1f} rounds/s ({timing}) "
             f"final_energy_std={out['energy_std'][-1]:.3f}", always=True)
@@ -250,18 +293,25 @@ def main(argv: Optional[List[str]] = None, *, assign_fn=None) -> dict:
                 "(ROADMAP.md, queue 1); leave it at its default")
     set_float32_precision()
     device = resolve_device(args.device)
-    obs.configure(quiet=args.quiet)
-    result = (run_selection(args, device) if args.mode == "selection"
-              else run_paper(args, device, assign_fn))
-    if args.out:
-        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(result, f, indent=1)
-        obs.log(f"wrote {args.out}", always=True)
-    if result.get("test_acc"):
-        obs.log(f"final acc={result['test_acc'][-1]:.3f} "
-                f"energy_std={result['energy_std'][-1]:.3f} "
-                f"wall={result['wall_s']:.0f}s", always=True)
+    attached = obs.OBS.sinks
+    obs.configure(jsonl=args.log_jsonl, csv=args.log_csv, quiet=args.quiet)
+    try:
+        with obs.maybe_profile(args.profile_dir):
+            result = (run_selection(args, device)
+                      if args.mode == "selection"
+                      else run_paper(args, device, assign_fn))
+        if args.out:
+            os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+            with open(args.out, "w") as f:
+                json.dump(result, f, indent=1)
+            obs.log(f"wrote {args.out}", always=True)
+        if result.get("test_acc"):
+            obs.log(f"final acc={result['test_acc'][-1]:.3f} "
+                    f"energy_std={result['energy_std'][-1]:.3f} "
+                    f"wall={result['wall_s']:.0f}s", always=True)
+    finally:
+        # flush, and close the sinks this call attached (a caller's stay)
+        obs.OBS.close_sinks(keep=attached)
     return result
 
 

@@ -222,6 +222,14 @@ def uniform(key: torch.Tensor, shape: Shape = (), minval=0.0, maxval=1.0,
     return torch.clamp(_fma(floats, hi - lo, lo), min=lo)
 
 
+def bernoulli(key: torch.Tensor, p: float, shape: Shape = (),
+              device="cuda") -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)``: ``uniform(key, shape) <
+    p`` with ``p`` rounded to float32, as JAX compares it.  p = 0 draws
+    no True, p = 1 all True (the uniform lies in [0, 1))."""
+    return uniform(key, shape, device=device) < float(np.float32(p))
+
+
 # XLA's single-precision erfinv (M. Giles, "Approximating the erfinv
 # function"), the polynomial jax.lax.erf_inv lowers to for float32
 _ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,

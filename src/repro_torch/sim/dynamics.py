@@ -1,29 +1,78 @@
-"""Client dynamics, the part the selection schemes read: the straggler
-latency model.
+"""Client dynamics: availability churn, stragglers and deadline misses
+(FedCS, Nishio & Yonetani, arXiv:1804.08333), the per-round fault model
+the round step (``core/rounds.py``) runs when ``cfg.dynamics_enabled``:
 
-FedCS (``core/schemes.py``) predicts each client's round latency at bid
-time from this model: the compute term scales with the client's local
-sample count (the same ``Ns_i`` that drives eq 11's energy) times a
-slowdown factor drawn under ``cfg.straggler_profile``, plus a fixed
-up/download term, in units of the fleet-mean round time.
+  * **availability churn** — a two-state Markov process per client: an
+    available client drops with prob ``cfg.churn`` a round, an
+    unavailable one rejoins with prob ``cfg.rejoin_prob``.  Round-start
+    availability gates auction eligibility; a winner that goes offline
+    mid-round (another ``churn`` draw) is DROPPED.
+  * **stragglers** — the latency model: the compute term scales with the
+    client's local sample count (the same ``Ns_i`` that drives eq 11's
+    energy) times a slowdown factor drawn under
+    ``cfg.straggler_profile``, plus a fixed up/download term, in units of
+    the fleet-mean round time.  FedCS (``core/schemes.py``) predicts
+    latency from the same model at bid time.
 
-  * ``energy`` (default): a full battery runs at 1x, an empty one at
-    about 3x, with a small jitter so equal-energy clients still differ;
-  * ``uniform`` / ``lognormal``: energy-independent noise;
-  * ``none``: deterministic.
+      * ``energy`` (default): a full battery runs at 1x, an empty one at
+        about 3x, with a small jitter so equal-energy clients still
+        differ;
+      * ``uniform`` / ``lognormal``: energy-independent noise;
+      * ``none``: deterministic.
+  * **deadline misses** — a surviving winner whose latency exceeds
+    ``cfg.deadline`` (when positive) is LATE: its update exists but
+    arrives after the round closes (the buffered aggregation folds it in
+    later; the synchronous path loses it).
 
-The fault model (availability churn, deadline misses, ``fault_step``)
-is not ported yet (ROADMAP.md, queue 1: fleet dynamics).
+Every draw comes from a dedicated key chain (:func:`dynamics_key`), apart
+from the server's selection chain, so a ``--churn 0`` run stays
+bit-identical to a dynamics-free one.  Outcome codes (int32, per
+client): 0 = not selected, 1 = COMPLETED, 2 = LATE, 3 = DROPPED.  The
+Byzantine corruption model (``adversary_key``, ``corrupt_updates``) is
+not ported yet (ROADMAP.md, queue 1: the Byzantine path).
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import rng
 from repro_torch.configs.base import FLConfig
+from repro_torch.device import resolve_device
+
+# per-winner outcome codes (see module docstring)
+NOT_SELECTED = 0
+COMPLETED = 1
+LATE = 2
+DROPPED = 3
 
 STRAGGLER_PROFILES = ("energy", "uniform", "lognormal", "none")
+
+# fold_in tag separating the dynamics chain from the selection chain
+_DYN_STREAM_TAG = 0x5D7A11CE
+
+
+@dataclass
+class DynamicsState:
+    """Carried fleet-dynamics state: ``avail`` is the churn process's
+    current availability mask."""
+
+    avail: torch.Tensor          # (N,) bool — client reachable this round
+
+
+def dynamics_key(cfg: FLConfig) -> torch.Tensor:
+    """Root of the dedicated dynamics key chain: ``fold_in(PRNGKey(seed),
+    0x5D7A11CE)``, so it never draws from the selection chain."""
+    return rng.fold_in(rng.PRNGKey(cfg.seed), _DYN_STREAM_TAG)
+
+
+def init_dynamics(cfg: FLConfig, device="cuda") -> DynamicsState:
+    """Round-0 dynamics state: everyone starts available."""
+    return DynamicsState(avail=torch.ones(
+        cfg.num_clients, dtype=torch.bool, device=resolve_device(device)))
 
 
 def latency_scale(cfg: FLConfig, key, residual: torch.Tensor
@@ -58,3 +107,77 @@ def round_latency(cfg: FLConfig, key, residual: torch.Tensor,
     # one rounding for the multiply-add, as XLA fuses it under jit
     return rng._fma(compute, latency_scale(cfg, key, residual),
                     float(np.float32(0.05)))
+
+
+# ----------------------------------------------------------------------
+# the per-round fault step
+# ----------------------------------------------------------------------
+
+def fault_step(cfg: FLConfig, key, win: torch.Tensor, avail: torch.Tensor,
+               residual: torch.Tensor, local_sizes: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One round of the fault model.  ``win`` (N,) bool auction winners,
+    ``avail`` (N,) bool round-start availability, ``residual`` /
+    ``local_sizes`` the SelectionState columns the latency model reads.
+
+    Returns ``(outcome, latency, new_avail)``: (N,) int32 outcome codes
+    (NOT_SELECTED for non-winners), (N,) float32 latencies and the next
+    round's availability (winners that dropped mid-round start it
+    offline; everyone else churns independently)."""
+    k_mid, k_lat, k_drop, k_join = rng.split(key, 4)
+    dev = win.device
+    lat = round_latency(cfg, k_lat, residual, local_sizes)
+    # mid-round dropout: a second churn draw
+    mid_drop = rng.bernoulli(k_mid, cfg.churn, win.shape, dev)
+    survived = win & avail & ~mid_drop
+    missed = ((lat > float(np.float32(cfg.deadline)))
+              if cfg.deadline > 0.0 else torch.zeros_like(win))
+    outcome = torch.where(
+        win, torch.where(survived, torch.where(missed, LATE, COMPLETED),
+                         DROPPED),
+        NOT_SELECTED).to(torch.int32)
+    # availability churn for the next round; mid-round droppers are
+    # offline whatever their churn draw
+    drop = rng.bernoulli(k_drop, cfg.churn, avail.shape, dev)
+    join = rng.bernoulli(k_join, cfg.rejoin_prob, avail.shape, dev)
+    new_avail = torch.where(avail, ~drop, join) & ~(win & mid_drop)
+    return outcome, lat, new_avail
+
+
+def update_staleness(staleness: torch.Tensor,
+                     outcome: torch.Tensor) -> torch.Tensor:
+    """Rounds since a client last COMPLETED a round."""
+    return torch.where(outcome == COMPLETED, 0,
+                       staleness + 1).to(torch.int32)
+
+
+def outcome_metrics(outcome: torch.Tensor,
+                    staleness: torch.Tensor) -> dict:
+    """The round's dynamics scalars, on the device (fetched with the
+    round's one batched drain)."""
+    return {
+        "num_completed": (outcome == COMPLETED).sum(),
+        "num_late": (outcome == LATE).sum(),
+        "num_dropped": (outcome == DROPPED).sum(),
+        "staleness_mean": staleness.float().mean(),
+        "staleness_max": staleness.max(),
+    }
+
+
+# ----------------------------------------------------------------------
+# host-side helpers (server aggregation path)
+# ----------------------------------------------------------------------
+
+def split_outcomes(sel_idx: np.ndarray, outcome_np: np.ndarray
+                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The fetched winner indices by outcome: ``(completed, late,
+    dropped)``."""
+    codes = outcome_np[sel_idx]
+    return (sel_idx[codes == COMPLETED], sel_idx[codes == LATE],
+            sel_idx[codes == DROPPED])
+
+
+def staleness_weight(cfg: FLConfig, tau: int) -> float:
+    """FedBuff-style staleness discount for a buffered update folded
+    ``tau`` rounds after its dispatch: ``(1 + tau) ** -alpha``."""
+    return float((1.0 + float(tau)) ** -cfg.staleness_alpha)

@@ -41,6 +41,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.adapters import ModelAdapter
 from repro_torch.optim import OptState, apply_updates, fedprox_grad, sgd
@@ -76,11 +77,13 @@ class CohortEngine:
         self._shared_grads = torch.func.vmap(grad, in_dims=(None, 0))
 
     def _note_shape(self, key) -> None:
-        if key in self._seen_shapes:
+        hit = key in self._seen_shapes
+        if hit:
             self.stats["shape_hits"] += 1
         else:
             self._seen_shapes.add(key)
             self.stats["shape_misses"] += 1
+        obs.torch_stats.note_shape(hit)     # process-wide mirror
 
     # ------------------------------------------------------------------
     def _local_steps(self, global_params: Tree,
@@ -121,10 +124,8 @@ class CohortEngine:
 
     @staticmethod
     def _bucket_tensors(b: CohortBucket, device):
-        return (torch.as_tensor(b.xb, device=device),
-                torch.as_tensor(b.yb, device=device),
-                torch.as_tensor(b.step_mask, device=device),
-                torch.as_tensor(b.weights, device=device))
+        """The bucket's arrays on ``device``, in one counted upload."""
+        return obs.device_put((b.xb, b.yb, b.step_mask, b.weights), device)
 
     # ------------------------------------------------------------------
     def train_bucket(self, global_params: Tree, bucket: CohortBucket

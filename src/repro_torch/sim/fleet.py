@@ -35,6 +35,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.selection import k_per_cluster
 from repro_torch.device import resolve_device
@@ -132,10 +133,10 @@ class FleetStore:
                 yb[r, :len(yl)] = yl
                 self.class_of[gid] = len(self.classes)
                 self.row_of[gid] = r
+            xd, yd = obs.device_put((xb, yb), device)
             self.classes.append(CapacityClass(
                 bs=bs, step_cap=step_cap, tiers=tiers, n_cap=n_cap,
-                members=members, x=torch.tensor(xb, device=device),
-                y=torch.tensor(yb, device=device)))
+                members=members, x=xd, y=yd))
 
     # ------------------------------------------------------------------
     def _empty_batch(self, cls_id: int, tier: int) -> ClassBatch:

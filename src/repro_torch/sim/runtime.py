@@ -30,7 +30,7 @@ from repro_torch import obs
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.adapters import ModelAdapter
 from repro_torch.core.clustering import window_index_table
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, synchronize
 from repro_torch.optim import apply_updates, fedprox_grad, sgd
 from repro_torch.sim.cohort import (HostPlanCache, drop_zero_size_winners,
                                     oracle_batch_plan, pack_cohort,
@@ -70,8 +70,8 @@ class SequentialRuntime:
 
     def local_data(self, client_idx: int):
         """The client's train shard (x, y) as tensors on the device."""
-        idx = torch.as_tensor(self.clients[client_idx].train_idx,
-                              device=self.device)
+        idx = obs.device_put(np.asarray(self.clients[client_idx].train_idx),
+                             self.device)
         return self.x[idx], self.y[idx]
 
     def _local_step(self, params: Tree, opt, batch, global_params: Tree):
@@ -88,7 +88,7 @@ class SequentialRuntime:
         plan = oracle_batch_plan(
             n, min(32, n), self.cfg.local_epochs,
             np.random.default_rng(int(history_count) * 977 + client_idx))
-        plan = torch.as_tensor(plan, device=self.device)
+        plan = obs.device_put(plan, self.device)
         p, opt = global_params, self._init(global_params)
         for rows in plan:
             p, opt = self._local_step(p, opt, {"x": x[rows], "y": y[rows]},
@@ -162,10 +162,13 @@ class VectorizedRuntime(SequentialRuntime):
                     self.x_host, self.y_host, self.clients,
                     chunk_width=self.cfg.cohort_vmap_width,
                     cache=self.plan_cache)
-                return self.engine.weight_features(global_params, buckets,
-                                                   len(self.clients))
-            return self.engine.gradient_features(
-                global_params, *self._gather_gradient_windows(key))
+                feats = self.engine.weight_features(
+                    global_params, buckets, len(self.clients))
+            else:
+                feats = self.engine.gradient_features(
+                    global_params, *self._gather_gradient_windows(key))
+            synchronize(self.device)
+            return feats
 
     def _gather_gradient_windows(self, key):
         """The sequential feature pass's sample windows (the same fold_in
@@ -208,13 +211,13 @@ class DeviceRuntime(VectorizedRuntime):
         self._warmed = True
 
     def _put_batch(self, b: ClassBatch):
-        """The class store and one batch's index tensors on the device."""
+        """The class store and one batch's index tensors on the device
+        (one counted upload)."""
         c = self.store.classes[b.cls_id]
-        dev = self.device
-        return (c.x, c.y, torch.as_tensor(b.rows, device=dev).long(),
-                torch.as_tensor(b.plans, device=dev).long(),
-                torch.as_tensor(b.step_mask, device=dev),
-                torch.as_tensor(b.weights, device=dev))
+        rows, plans, mask, w = obs.device_put(
+            (np.asarray(b.rows, np.int64), np.asarray(b.plans, np.int64),
+             b.step_mask, b.weights), self.device)
+        return c.x, c.y, rows, plans, mask, w
 
     def train_cohort(self, global_params: Tree, sel_idx: np.ndarray,
                      history: np.ndarray) -> Optional[Tree]:

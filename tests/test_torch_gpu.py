@@ -306,3 +306,110 @@ def test_simulate_rounds_on_cuda_has_no_host_sync_and_matches_cpu(
     _, _, cwins = RND.simulate_rounds(cpu_state, cfg, kr, 10,
                                       record_wins=True)
     assert torch.equal(wins.cpu(), cwins)
+
+
+def test_sync_audit_raises_on_item_and_not_on_counted_transfers(cuda):
+    from repro_torch import obs
+    from repro_torch.obs import torchmon
+
+    x = torch.arange(6.0, device=cuda)
+    torch.cuda.synchronize()
+    with obs.sync_audit():
+        with pytest.raises(RuntimeError):
+            x.sum().item()
+        with pytest.raises(RuntimeError):
+            torch.ones(3).to(cuda)               # blocking pageable copy
+        back = obs.device_get((x.sum(), x > 2))
+        up = obs.device_put(np.arange(4, dtype=np.float32), cuda)
+        assert torchmon.sync_debug_mode() == 2
+    assert torchmon.sync_debug_mode() == 0
+    assert float(back[0]) == 15.0 and back[1].tolist() == [False] * 3 + \
+        [True] * 3
+    assert up.device.type == "cuda" and up.tolist() == [0.0, 1.0, 2.0, 3.0]
+
+
+@pytest.mark.parametrize("profile", ["energy", "uniform", "lognormal",
+                                     "none"])
+def test_fault_step_and_dynamics_round_step_on_cuda_match_cpu(cuda,
+                                                              profile):
+    """The fault model and the dynamics round step on the card give the
+    CPU's winners, outcome codes, availability and staleness bit for bit;
+    latencies within 1e-6 relative (``lognormal``'s exp rounds in the
+    last place otherwise on the card)."""
+    import dataclasses
+
+    from repro_torch import rng
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core import rounds as RND
+    from repro_torch.sim import dynamics as DYN
+
+    cfg = FLConfig(num_clients=5_000, num_clusters=10, churn=0.2,
+                   deadline=1.1, straggler_profile=profile,
+                   init_energy_mode="normal")
+    r = np.random.default_rng(1)
+    win = torch.tensor(r.uniform(size=5_000) < 0.3)
+    avail = torch.tensor(r.uniform(size=5_000) < 0.8)
+    residual = torch.tensor(r.uniform(0, 100, 5_000).astype(np.float32))
+    sizes = torch.tensor(r.integers(0, 900, 5_000).astype(np.int32))
+    key = rng.PRNGKey(3)
+    a = DYN.fault_step(cfg, key, win, avail, residual, sizes)
+    b = DYN.fault_step(cfg, key, *(t.to(cuda) for t in (win, avail,
+                                                        residual, sizes)))
+    assert torch.equal(a[0], b[0].cpu()) and torch.equal(a[2], b[2].cpu())
+    torch.testing.assert_close(b[1].cpu(), a[1], rtol=1e-6, atol=0.0)
+
+    state = RND.synthetic_fleet(cfg, rng.PRNGKey(0), device="cpu")
+    state = dataclasses.replace(
+        state, staleness=torch.zeros(5_000, dtype=torch.int32))
+    runs = {}
+    for dev in ("cpu", cuda):
+        s = dataclasses.replace(state, **{
+            f: getattr(state, f).to(dev) for f in
+            ("clusters", "residual", "history", "local_sizes",
+             "staleness")})
+        d = DYN.init_dynamics(cfg, dev)
+        step = RND.make_round_step(cfg, dynamics=True, device=dev)
+        k, dk, rows = rng.PRNGKey(7), DYN.dynamics_key(cfg), []
+        for _ in range(5):
+            k, sub = rng.split(k)
+            dk, dsub = rng.split(dk)
+            s, d, w, o, _ = step(s, d, sub, dsub)
+            rows.append([t.cpu() for t in (w, o, d.avail, s.staleness,
+                                           s.history)])
+        runs[str(dev)] = rows
+    for x, y in zip(runs["cpu"], runs[str(cuda)]):
+        for u, v in zip(x, y):
+            assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("runtime", ["sequential", "vectorized", "device"])
+def test_audited_dynamics_run_on_cuda_matches_cpu(cuda, runtime):
+    """A buffered faulty run with its warm rounds under the sync auditor
+    on the card selects and classifies as the CPU run, params within
+    1e-4."""
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core.adapters import cnn_adapter
+    from repro_torch.core.server import FederatedServer
+    from repro_torch.data.partition import partition_clients
+    from repro_torch.data.synthetic import make_image_dataset
+
+    cfg = FLConfig(**dict(RUNTIME_KW, rounds=4), runtime=runtime,
+                   churn=0.25, deadline=1.2, aggregation="buffered",
+                   buffer_goal=1)
+    train, test = make_image_dataset("mnist", n_train=700, n_test=120,
+                                     seed=3, device="cpu")
+    clients = partition_clients(train.y, cfg, seed=3)
+    got = {}
+    for dev in ("cpu", cuda):
+        srv = FederatedServer(cfg, cnn_adapter("mnist", dev), train.x,
+                              train.y, clients,
+                              {"x": test.x[:64], "y": test.y[:64]},
+                              device=dev)
+        logs = srv.run(audit_sync=True, audit_warm_rounds=1)
+        got[str(dev)] = ([l.selected.tolist() for l in logs],
+                         [o.tolist() for o in srv.outcome_log],
+                         {k: v.cpu() for k, v in srv.params.items()})
+    (s0, o0, p0), (s1, o1, p1) = got["cpu"], got[str(cuda)]
+    assert s0 == s1 and o0 == o1
+    for k in p0:
+        assert float((p0[k] - p1[k]).abs().max()) < 1e-4, k

@@ -150,7 +150,46 @@ def test_zero_winner_round_pays_zero():
             assert float(tm[k]) == 0.0 == float(jm[k])
 
 
-def test_dynamics_round_step_raises():
-    cfg = FLConfig(num_clients=4, num_clusters=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TR.make_round_step(cfg, dynamics=True)
+@pytest.mark.parametrize("profile", ["energy", "uniform", "lognormal",
+                                     "none"])
+def test_dynamics_round_step_raises(profile):
+    """The dynamics round step (``make_round_step(dynamics=True)``)
+    against the JAX package's over 8 rounds on shared keys: winners,
+    outcome codes, next availability and staleness bit for bit, energy
+    within 1e-6, every metric within 1e-5."""
+    from repro.sim import dynamics as JDYN
+    from repro_torch.sim import dynamics as TDYN
+    kw = dict(num_clients=N, num_clusters=J, select_ratio=0.1, seed=4,
+              churn=0.2, deadline=1.1, straggler_profile=profile)
+    jcfg, tcfg = JConfig(**kw), FLConfig(**kw)
+    js = JR.synthetic_fleet(jcfg, jax.random.PRNGKey(4))
+    js = JS.SelectionState(clusters=js.clusters, residual=js.residual,
+                           history=js.history, local_sizes=js.local_sizes,
+                           staleness=jnp.zeros(N, jnp.int32))
+    ts = _torch_state(js)
+    ts.staleness = torch.zeros(N, dtype=torch.int32)
+    jd, td = JDYN.init_dynamics(jcfg), TDYN.init_dynamics(tcfg, "cpu")
+    ch, gh = _hists(4)
+    jstep = JR.make_round_step(jcfg, ch, gh, dynamics=True)
+    tstep = TR.make_round_step(tcfg, ch, gh, dynamics=True, device="cpu")
+    jk, tk = jax.random.PRNGKey(9), rng.PRNGKey(9)
+    jdk, tdk = JDYN.dynamics_key(jcfg), TDYN.dynamics_key(tcfg)
+    np.testing.assert_array_equal(tdk.numpy(), np.asarray(jdk))
+    for t in range(8):
+        jk, jsub = jax.random.split(jk)
+        tk, tsub = rng.split(tk)
+        jdk, jdsub = jax.random.split(jdk)
+        tdk, tdsub = rng.split(tdk)
+        js, jd, jw, jo, jm = jstep(js, jd, jsub, jdsub)
+        ts, td, tw, to, tm = tstep(ts, td, tsub, tdsub)
+        for a, b in ((tw, jw), (to, jo), (td.avail, jd.avail),
+                     (ts.staleness, js.staleness), (ts.history, js.history)):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b),
+                                          err_msg=f"round {t}")
+        np.testing.assert_allclose(ts.residual.numpy(),
+                                   np.asarray(js.residual),
+                                   rtol=1e-6, atol=1e-6)
+        assert sorted(tm) == sorted(jm)
+        for k in jm:
+            np.testing.assert_allclose(float(tm[k]), float(jm[k]),
+                                       rtol=1e-5, atol=1e-6, err_msg=k)

@@ -167,11 +167,11 @@ def test_cli_defaults_match_jax_cli(monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [["--runtime", "sharded"],
-                                  ["--churn", "0.1"],
+                                  ["--defense-mode", "adaptive"],
                                   ["--defense", "clip"],
                                   ["--watchdog", "on"],
                                   ["--mode", "transformer"],
-                                  ["--checkpoint-every", "1"],
+                                  ["--reputation-mode", "price"],
                                   ["--adversary-frac", "0.1"]])
 def test_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError):
