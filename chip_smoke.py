@@ -78,7 +78,31 @@
    resumed leg; save and restore seconds); ``--audit-sync`` (warm rounds
    under ``set_sync_debug_mode("error")``) and four more audited rounds
    with the counted transfers per round; ``--profile-dir`` (a trace).
-10. Selection path: ``--mode selection --clients 1000000 --rounds 100``
+10. Robust path: the reference benchmark's robust_agg and self_healing
+   fleets (ROBUST_CELLS: 32 clients, 4 clusters, 60 rounds on ``--runtime
+   device``, clean and selfheal 100; undefended and ``trimmed`` FedAvg
+   under a 30 % ``scale`` attack, clean, clean with the watchdog, the
+   static clip and the self-healing stack (adaptive band, priced
+   reputation, watchdog) under ``sub_clip``) and a 4-round NaN storm that
+   the watchdog rolls back, each built as ``FederatedServer`` with its
+   launch counts reset before and read after (26 ``lloyd_step``
+   launches): winners, per-round quarantine and band counts, bans,
+   rollbacks and final accuracy held to the JAX package's
+   (ROBUST_REFERENCE, bit for bit wherever the JAX package's own
+   runtimes agree); where they drift apart (selfheal from round 12), the
+   ban count and screened total held to the range of the JAX package's
+   runs under float drift (ROBUST_DRIFT) and single rounds from the JAX
+   package's own states held to its decisions exactly (ROBUST_ANCHORS);
+   the trimmed cell's first screened steps held to the CPU's on the same
+   inputs and far from undefended FedAvg's; the self-healing and
+   NaN-storm logs valid under the schema, undefended FedAvg far below
+   clean, selfheal within 0.05 of clean at 100 rounds; the self-healing
+   run's warm rounds under ``--audit-sync`` on ``device`` (and 60 rounds
+   on ``vectorized``), its resume from the round-30 snapshot
+   bit-identical with no launch; the warm seconds per round with the
+   counted transfers, the defended overhead against clean, and the
+   screened step's device ms per defense.
+11. Selection path: ``--mode selection --clients 1000000 --rounds 100``
    for each ``--scheme-select`` value (warm and cold rounds/s); then, for
    those four and the three baseline ``--scheme`` values,
    ``simulate_rounds`` at N = 1,000,000 and T = 10 with ``record_wins``
@@ -87,7 +111,7 @@
    ``simulate_rounds_reference`` (winners, residual, history, metrics),
    and a warm 100-round ``simulate_rounds`` of each ``--scheme-select``
    under the same mode.
-11. Serving path at full width: qwen2-0.5b (24 layers, bf16, weights
+12. Serving path at full width: qwen2-0.5b (24 layers, bf16, weights
    from ``init_params(cfg, PRNGKey(0))``) with ``attn_impl="pallas"``:
    ``logits_fn`` prefill of 4,096 tokens, counts reset before and read
    after (24 flash_attention launches), held against the plain
@@ -108,10 +132,12 @@ raises.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -137,6 +163,8 @@ KERNEL_SHAPES = (
     ("ragged", 257, 100, 7, 1, torch.float32, 1),
     ("bf16", 4096, 256, 16, 1, torch.bfloat16, 2),
     ("fleet", 100_000, 256, 10, 4, torch.float32, 3),
+    # stage 1 of the robust path: 32 clients, 4 clusters
+    ("robust", 32, 256, 4, 4, torch.float32, 4),
 )
 MAIN_ARGS = ["--rounds", "3", "--quiet"]          # reference defaults else
 # The clients the JAX package (python -m repro.launch.train --mode paper
@@ -342,6 +370,74 @@ DYN_WINNERS = {
 AGREE_FLAGS = ["--rounds", "3", "--churn", "0.25", "--deadline", "1.2",
                "--aggregation", "buffered", "--audit-sync"]
 RESUME_DYN_FLAGS = ["--churn", "0.1", "--deadline", "1.5"]
+# the robust path: the reference benchmark's robust_agg and self_healing
+# fleets (benchmarks/run.py bench_robust_agg and bench_self_healing: the
+# CNN-MNIST, 32 clients in 4 clusters, 150 images each, 60 rounds on
+# --runtime device, seed 0), built as FederatedServer directly since the
+# CLI has no --sample-window, --cluster-resamples or --non-iid flags, and
+# tests/test_selfheal.py's NaN storm (4 rounds, ring 3) at the same width
+ROBUST_DATASET = "mnist"
+ROBUST_BASE = dict(num_clients=32, num_clusters=4, select_ratio=0.3,
+                   local_epochs=2, lr=0.1, non_iid_level=0.3,
+                   scheme="gradient_cluster_auction", sample_window=20,
+                   cluster_resamples=2, init_energy_mode="normal",
+                   runtime="device", seed=0)
+ROBUST_POOL = 32 * 150
+ROBUST_TEST = 256
+ROBUST_ROUNDS = 60
+_SUB_CLIP = dict(attack="sub_clip", adversary_frac=0.3, defense="clip")
+ROBUST_CELLS = {
+    "robust_none": dict(attack="scale", adversary_frac=0.3,
+                        defense="none", eval_every=10 ** 6),
+    "robust_trimmed": dict(attack="scale", adversary_frac=0.3,
+                           defense="trimmed", eval_every=10 ** 6),
+    "clean": dict(eval_every=10),
+    "clean_watchdog": dict(eval_every=10, watchdog="on"),
+    "static_clip": dict(eval_every=10, **_SUB_CLIP),
+    "selfheal": dict(eval_every=10, defense_mode="adaptive",
+                     reputation_mode="price", watchdog="on", **_SUB_CLIP),
+    "nan_storm": dict(eval_every=1, adversary_frac=0.3, attack="nan",
+                      defense="none", watchdog="on", watchdog_ring=3),
+}
+# clean and selfheal run 100 rounds, whose first 60 are the benchmark's
+# 60-round runs: at 60 the self-healing runs sit on their learning onset
+# (near 0.1 at round 50 and 0.84-0.87 at round 60 in the JAX package's
+# runs), so the benchmark's comparison is read where both have settled,
+# on the mean of the last three evals
+LONG_CELLS = ("clean", "selfheal")
+LONG_ROUNDS = 100
+
+
+# The JAX package's results for these cells, written by
+# tools/record_robust_reference.py on the CPU: each cell's device run
+# (every round's winners, the per-round quarantine and band counts, the
+# final ban count, the watchdog's rollbacks, snapshots and rollback
+# events, the final accuracy) and its spread over the JAX package's own
+# runtimes (see check_robust_cell)
+ROBUST_REFERENCE = ROOT / "tools" / "robust_reference.json"
+# the JAX package's selfheal runs under float drift, written by
+# tools/robust_drift.py: each run's initial params moved by one unit in
+# the last place (the size of another float-sum order), on its device and
+# sequential runtimes; per cell the range of their ban counts and
+# screened totals after 60 rounds and at the end
+ROBUST_DRIFT = ROOT / "tools" / "robust_drift.json"
+# the JAX package's selfheal state before and after a few rounds (its
+# checkpoints, written by tools/robust_drift.py anchors), from which one
+# round on the card must take JAX's decisions
+ROBUST_ANCHORS = ROOT / "tools" / "robust_anchors"
+# the robust_trimmed cell's first screened-step calls, held on the CPU,
+# to the bound tests/test_torch_gpu.py holds the card's step to
+STEP_CALLS = 3
+STEP_TOL = 1e-5
+# the audited selfheal warm loop on vectorized: its winners and screen
+# counts held through round 11, its totals after 60 rounds to ROBUST_DRIFT
+VEC_AUDIT_ROUNDS = 60
+
+
+def robust_rounds(name: str) -> int:
+    if name in LONG_CELLS:
+        return LONG_ROUNDS
+    return 4 if name == "nan_storm" else ROBUST_ROUNDS
 # the selection path: --mode selection at a million clients
 SELECTION_CLIENTS = 1_000_000
 SELECTION_ARGS = ["--mode", "selection", "--clients", str(SELECTION_CLIENTS),
@@ -1301,6 +1397,547 @@ def dynamics_path(OPS, TRAIN, obs, servers, smi) -> int:
     return launches["0.1"]
 
 
+def robust_data():
+    """The robust cells' fleet: the pool, its partition (the same for
+    every cell: it reads only num_clients, non_iid_level and the seed)
+    and the test batch."""
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.data.partition import partition_clients
+    from repro_torch.data.synthetic import make_image_dataset
+    seed = ROBUST_BASE["seed"]
+    train, test = make_image_dataset(ROBUST_DATASET, n_train=ROBUST_POOL,
+                                     n_test=ROBUST_TEST, seed=seed)
+    clients = partition_clients(train.y, FLConfig(**ROBUST_BASE), seed=seed)
+    return train, clients, {"x": test.x[:ROBUST_TEST],
+                            "y": test.y[:ROBUST_TEST]}
+
+
+def robust_cell(OPS, obs, data, name, runtime="device", rounds=None,
+                warm=5, jsonl=None, device="cuda", setup=None, **run_kw):
+    """Build one robust cell's FederatedServer on the card and run it
+    through ``run``, its launch counts set to 0 just before.  Times the
+    warm rounds from ``warm`` on (host clock, the card synchronised at
+    both ends of the window) and counts their transfers.  ``setup(srv)``
+    runs once the server is built.  Returns the server, its logs, its
+    round rows and its numbers."""
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core.adapters import cnn_adapter
+    from repro_torch.core.server import FederatedServer
+    train, clients, test = data
+    cfg = FLConfig(**dict(ROBUST_BASE, runtime=runtime,
+                          **ROBUST_CELLS[name]))
+    rounds = robust_rounds(name) if rounds is None else rounds
+    srv = FederatedServer(cfg, cnn_adapter(ROBUST_DATASET, device),
+                          train.x, train.y, clients, test, device=device)
+    if setup is not None:
+        setup(srv)
+    dispatch, mark = srv._dispatch_round, {}
+
+    def timed(t, eval_now, final=False):
+        if t == warm:
+            # the window opens inside the sync audit's region on an
+            # audited run: the wait for the card is this timer's own
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode(mode)
+            mark["t"] = time.perf_counter()
+            mark["moved"] = obs.torch_stats.snapshot()
+        dispatch(t, eval_now, final=final)
+
+    srv._dispatch_round = timed
+    mem = obs.configure(memory=True, jsonl=jsonl)
+    reset_counts(OPS)
+    obs.SPANS.clear()
+    try:
+        logs = srv.run(rounds=rounds, **run_kw)
+        torch.cuda.synchronize()
+    finally:
+        obs.OBS.close_sinks()
+    info = {"launches": OPS.lloyd_step.launches,
+            "stage1_s": obs.SPANS.get("run/cluster", 0.0),
+            "spans": {k: v for k, v in sorted(obs.SPANS.items())
+                      if k.startswith(("round/", "cohort/"))}}
+    require(OPS.kmeans_assign.launches == OPS.flash_attention.launches
+            == 0, f"{name}: launched a kernel it does not use")
+    if "t" in mark:
+        n = len(logs) - (warm - logs[0].round)
+        info["warm_s_per_round"] = (time.perf_counter() - mark["t"]) / n
+        moved = obs.torch_stats.delta(mark["moved"])
+        info["per_round"] = {k: moved.get(k, 0) / n for k in (
+            "h2d_calls", "h2d_bytes", "d2h_calls", "d2h_bytes")}
+    rows = [e for e in mem.events if e["kind"] == "round"]
+    return srv, logs, rows, info
+
+
+def envelope(values, floor):
+    """[lo - floor, hi + floor] around the JAX runs' values: where they
+    agree this is their value within ``floor``.  Around a sample of runs
+    under drift ``floor`` is half the sample's range: a further run falls
+    outside the range of n others with chance 2/(n + 1), and half the
+    width again on each side puts the bound near four standard
+    deviations of a normal spread."""
+    return min(values) - floor, max(values) + floor
+
+
+def totals_at(rows, n):
+    """A defended run's ban count at round n - 1 and screens in rounds
+    0 to n - 1, from its round rows."""
+    return (int(rows[n - 1]["num_banned"]),
+            sum(int(r["num_screened"]) for r in rows[:n]))
+
+
+def check_robust_cell(name, srv, logs, rows, want, drift=None, first=0):
+    """Hold one robust run from round ``first`` on to the JAX package's
+    (ROBUST_WINNERS).  Winners and per-round quarantine and band counts
+    are held bit for bit in every round in which the JAX package's own
+    runtimes agree with each other (``agree_through``; all rounds unless
+    the cell's selection reads the trained params), and so are rollbacks
+    and the ban and screened totals of a cell whose runtimes agree in
+    every round.  A cell whose runs pick other clients from
+    ``agree_through`` on holds its ban count and screened total after 60
+    rounds and at its end to the range of the JAX package's runs of the
+    same cell under float drift (``drift``, tools/robust_drift.json).
+    Returns the rounds held exactly."""
+    spread = want["spread"]
+    horizon = spread["agree_through"]
+    horizon = len(want["selected"]) if horizon is None else horizon
+    got = [l.selected.tolist() for l in logs]
+    held = max(0, min(first + len(got), horizon) - first)
+    sel = want["selected"][first:first + held]
+    require(got[:held] == sel, f"{name}: the JAX package selects "
+            f"otherwise, {first_diff(got[:held], sel)}")
+    for key in ("num_quarantined", "num_screened"):
+        if key in want:
+            g = [int(r[key]) for r in rows][:held]
+            w = want[key][first:first + held]
+            require(g == w, f"{name}: {key} differs from the JAX "
+                    f"package's, {first_diff(g, w)}")
+    if first:
+        return held
+    checks = []
+    if len(got) == len(want["selected"]):
+        checks += [("rollbacks", getattr(srv, "watchdog_totals", {}).get(
+            "rollbacks", 0), spread["rollbacks"].values())]
+        if srv.defended and spread["agree_through"] is None:
+            checks += [("banned", srv.defense_totals["banned_final"],
+                        spread["banned"].values()),
+                       ("screened", srv.defense_totals["screened"],
+                        spread["screened"].values())]
+    if srv.defended and spread["agree_through"] is not None:
+        require(drift is not None, f"{name}: no drift range recorded")
+        for n in sorted({ROBUST_ROUNDS, len(got)}):
+            if f"banned_{n}" not in drift:
+                continue
+            banned, screened = totals_at(rows, n)
+            checks += [(f"banned after {n} rounds", banned,
+                        drift[f"banned_{n}"]),
+                       (f"screened in {n} rounds", screened,
+                        drift[f"screened_{n}"])]
+    for key, value, runs in checks:
+        lo, hi = envelope(runs, (max(runs) - min(runs)) / 2)
+        require(lo <= value <= hi, f"{name}: {key} {value}, outside "
+                f"[{lo}, {hi}] around the JAX package's runs "
+                f"{sorted(runs)}")
+    return held
+
+
+def record_screened_steps(srv, count):
+    """Keep the inputs and outputs of the first ``count`` calls of the
+    server's screened step (clones on the card, no host sync)."""
+    calls = []
+    step = srv._screen_step
+
+    def clone(v):
+        if isinstance(v, torch.Tensor):
+            return v.clone()
+        if isinstance(v, dict):
+            return {k: clone(x) for k, x in v.items()}
+        if isinstance(v, (tuple, list)):
+            return type(v)(clone(x) for x in v)
+        if dataclasses.is_dataclass(v):
+            return dataclasses.replace(v, **{
+                f.name: clone(getattr(v, f.name))
+                for f in dataclasses.fields(v)})
+        return v
+
+    def recorded(*args):
+        out = step(*args)
+        if len(calls) < count:
+            calls.append((clone(args), clone(out)))
+        return out
+
+    srv._screen_step = recorded
+    return calls
+
+
+def check_screened_calls(name, cfg, calls, card):
+    """Each recorded call of the card's screened step against the same
+    step on the CPU on the same inputs (deltas, weights, masks, strikes,
+    state, key): new strikes and counts exact, the aggregate within
+    STEP_TOL.  The same inputs through ``defense="none"`` give the
+    undefended aggregate, which a defense that fell back to plain FedAvg
+    would return: it must lie at least 100 STEP_TOL away."""
+    from repro_torch.core import aggregation as AGG
+
+    def cpu(v):
+        if isinstance(v, torch.Tensor):
+            return v.cpu()
+        if dataclasses.is_dataclass(v):
+            return dataclasses.replace(v, **{
+                f.name: cpu(getattr(v, f.name))
+                for f in dataclasses.fields(v)})
+        return v
+
+    step = AGG.make_screened_step(cfg)
+    none = AGG.make_screened_step(dataclasses.replace(cfg, defense="none"))
+    for i, (args, out) in enumerate(calls):
+        args = tuple(cpu(a) for a in args)
+        agg, strikes, _, rep = step(*args)
+        plain = none(*args)[0]
+        got = out[0].cpu()
+        err = float((got - agg).abs().max())
+        apart = float((got - plain).abs().max())
+        require(err <= STEP_TOL, f"{name} call {i}: the card's aggregate "
+                f"differs from the CPU's by {err} > {STEP_TOL}")
+        require(torch.equal(out[1].cpu(), strikes),
+                f"{name} call {i}: new strikes differ from the CPU's")
+        for k in ("num_quarantined", "num_screened", "num_survivors"):
+            require(int(out[3][k]) == int(rep[k]), f"{name} call {i}: "
+                    f"{k} {int(out[3][k])}, the CPU's {int(rep[k])}")
+        require(apart >= 100 * STEP_TOL, f"{name} call {i}: the aggregate "
+                f"is within {apart} of undefended FedAvg's")
+        print(f"  {name} screened step call {i} (round {int(args[7])}): "
+              f"card vs CPU max_abs_err={err!r}, vs undefended FedAvg "
+              f"max_abs_diff={apart!r}, adversary rows="
+              f"{int((args[3] & args[2]).sum())} [{card}]", flush=True)
+
+
+def check_resume(OPS, obs, data, ck, full_logs, want) -> None:
+    """Rounds 30-59 of selfheal again from the uninterrupted run's
+    snapshot at 30 (``ck``30), held to that run's logs and its snapshot
+    at 60 (``ck``60) bit for bit, with no ``lloyd_step`` launch (the
+    resumed leg's last round evaluates, as a final round does)."""
+    from repro_torch.checkpoint import io as CKPT
+    srv, logs, rows, info = robust_cell(OPS, obs, data, "selfheal", warm=35,
+                                        rounds=60, checkpoint_path=f"{ck}30",
+                                        resume=True)
+    require(info["launches"] == 0, f"resume selfheal: the resumed leg made "
+            f"{info['launches']} lloyd_step launches")
+
+    def rows_of(ls):       # NaN-free: skipped evals are NaN by design
+        return [(l.round, l.selected.tolist(), l.eval_skipped,
+                 None if l.eval_skipped else (l.test_acc, l.test_loss))
+                for l in ls]
+
+    require([l.round for l in logs] == list(range(30, 60))
+            and rows_of(logs[:-1]) == rows_of(full_logs[30:59])
+            and logs[-1].selected.tolist()
+            == full_logs[59].selected.tolist(),
+            "resume selfheal: rounds 30-59 differ from the uninterrupted "
+            "run's")
+    saved, step = CKPT.restore(f"{ck}60", srv._ckpt_tree())
+    require(step == 60 and all(torch.equal(saved["params"][k], srv.params[k])
+                               for k in srv.params)
+            and torch.equal(saved["state"].strikes, srv.state.strikes)
+            and all(torch.equal(getattr(saved["defense_state"], f),
+                                getattr(srv._defense_state, f))
+                    for f in ("clip_ema", "mad_ema", "pressure", "tighten")),
+            "resume selfheal: params, strikes or defense state at 60 are "
+            "not bit-identical to the uninterrupted run's snapshot")
+    check_robust_cell("resume selfheal", srv, logs, rows, want, first=30)
+    print("resume selfheal (device, snapshot at 30): rounds 30-59, params, "
+          "strikes and defense state at 60 bit-identical, resumed "
+          "lloyd_step launches=0", flush=True)
+
+
+def robust_anchor_rounds(OPS, obs, data, card) -> None:
+    """From the JAX package's own state before round T of the selfheal
+    cell (its checkpoint, ROBUST_ANCHORS), one round on the card takes
+    JAX's decisions: winners, quarantine, band and ban counts exactly,
+    and of the state the next round reads (the checkpoint tree) the
+    strikes and integer leaves exactly and every other leaf (params,
+    energy residuals, the defense EMAs) within PARAMS_TOL.  One round of
+    two runtimes from the same state moves the latter by up to 5.4e-5
+    (tools/robust_drift.py lockstep: the MAD's median picking the other
+    of two near-equal norms); a round's own update moves each of them by
+    more than PARAMS_TOL at five of the six anchors.
+
+    A whole run drifts from JAX's once its screens read the trained
+    params (check_robust_cell); these rounds hold the mechanism itself
+    where whole runs no longer can, at rounds 15 to 90."""
+    import numpy as np
+    from repro_torch.checkpoint import io as CKPT
+    meta = json.loads((ROBUST_ANCHORS / "anchors.json").read_text())
+    for t_str, want in meta["anchors"].items():
+        t = int(t_str)
+        srv, logs, rows, info = robust_cell(
+            OPS, obs, data, meta["cell"], rounds=t + 1, warm=t + 1,
+            checkpoint_path=str(ROBUST_ANCHORS / f"round{t}"), resume=True)
+        require(info["launches"] == 0, f"anchor {t}: the resumed round "
+                f"made {info['launches']} lloyd_step launches")
+        require([l.round for l in logs] == [t], f"anchor {t}: ran rounds "
+                f"{[l.round for l in logs]}")
+        require(logs[0].selected.tolist() == want["selected"],
+                f"anchor {t}: winners {logs[0].selected.tolist()}, the "
+                f"JAX package's {want['selected']}")
+        for k in ("num_quarantined", "num_screened", "num_banned"):
+            require(int(rows[0][k]) == want[k], f"anchor {t}: {k} "
+                    f"{int(rows[0][k])}, the JAX package's {want[k]}")
+        got = CKPT._flatten(srv._ckpt_tree())
+        with np.load(ROBUST_ANCHORS / f"round{t + 1}.npz") as f:
+            nxt = {k: f[k] for k in f.files}
+        require(sorted(got) == sorted(nxt), f"anchor {t}: state keys "
+                f"{sorted(got)}, the JAX package's {sorted(nxt)}")
+        diff = {}
+        for k in got:
+            d = float(np.abs(got[k].astype(np.float64) - nxt[k]).max())
+            if (np.issubdtype(nxt[k].dtype, np.floating)
+                    and k != "state/.strikes"):
+                diff[k] = d
+                require(d < PARAMS_TOL, f"anchor {t}: {k} differs from "
+                        f"the JAX package's by {d} >= {PARAMS_TOL}")
+            else:
+                require(d == 0.0, f"anchor {t}: {k} differs from the JAX "
+                        "package's")
+        worst = max(diff, key=diff.get)
+        counts = {k: want[k] for k in ("num_quarantined", "num_screened",
+                                        "num_banned")}
+        print(f"anchor round {t} (selfheal, device, from the JAX "
+              f"package's state): winners, {counts}, strikes and integer "
+              f"state = JAX's, float state max_abs_diff={diff[worst]!r} "
+              f"({worst}), lloyd_step launches=0 [{card}]", flush=True)
+
+
+def screened_step_times(obs, card, warm_s):
+    """The screened step's device ms at the robust cells' shape
+    (screen_capacity rows x the CNN's 21,840 parameters) for clip,
+    trimmed and median, and each one's share of a warm selfheal round."""
+    from repro_torch import rng
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core import aggregation as AGG
+    dev = torch.device("cuda")
+    cfg0 = FLConfig(**dict(ROBUST_BASE, **ROBUST_CELLS["selfheal"]))
+    cap, d, n = AGG.screen_capacity(cfg0), 21840, cfg0.num_clients
+    g = torch.Generator(device=dev).manual_seed(7)
+    deltas = torch.randn(cap, d, device=dev, generator=g)
+    valid = torch.arange(cap, device=dev) < cap - 6
+    w = torch.where(valid, 1.0 / float(cap - 6), 0.0)
+    adv = valid & (torch.arange(cap, device=dev) % 3 == 0)
+    ids = torch.where(valid, torch.arange(cap, device=dev), -1).to(
+        torch.int32)
+    strikes = torch.zeros(n, device=dev)
+    rnd = torch.zeros((), dtype=torch.int32, device=dev)
+    out = {}
+    for defense in ("clip", "trimmed", "median"):
+        cfg = FLConfig(**dict(ROBUST_BASE, **dict(
+            ROBUST_CELLS["selfheal"], defense=defense)))
+        step = AGG.make_screened_step(cfg)
+        ds = AGG.init_defense_state(cfg, dev)
+        ds = AGG.DefenseState(clip_ema=ds.clip_ema + 140.0,
+                              mad_ema=ds.mad_ema + 1.0,
+                              pressure=ds.pressure, tighten=ds.tighten)
+        ms = median_ms(lambda: step(deltas, w, valid, adv, ids, strikes, ds,
+                                    rnd, rng.PRNGKey(0)))
+        out[defense] = ms
+        print(f"screened step {defense} (adaptive, watchdog) at ({cap}, "
+              f"{d}): device_ms={ms!r} share_of_warm_selfheal_round="
+              f"{ms / (warm_s * 1e3)!r} [{card}]", flush=True)
+    return out
+
+
+def robust_path(OPS, obs, card) -> int:
+    """The Byzantine-tolerant path at the reference benchmark's width,
+    every cell held to the JAX package's winners, screen counts,
+    rollbacks and final accuracy (ROBUST_WINNERS), the self-healing
+    cell's totals to the JAX runs' drift range (ROBUST_DRIFT) and its
+    rounds from JAX's own states (ROBUST_ANCHORS).  Returns the cells'
+    ``lloyd_step`` launches."""
+    from repro_torch.obs import schema as SCHEMA
+    work = ROOT / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    data = robust_data()
+    ROBUST_WINNERS = json.loads(ROBUST_REFERENCE.read_text())
+    drift = json.loads(ROBUST_DRIFT.read_text())
+    launches, acc, warm, late = 0, {}, {}, {}
+    ck = work / "robust_selfheal_ck"
+
+    def keep_snapshots(srv):
+        # run() writes a snapshot after rounds 29, 59 and 89 to one path:
+        # a copy taken before rounds 30 and 60 keeps the first two
+        dispatch = srv._dispatch_round
+
+        def hooked(t, eval_now, final=False):
+            if t in (30, 60):
+                for ext in (".npz", ".json"):
+                    shutil.copy(f"{ck}{ext}", f"{ck}{t}{ext}")
+            dispatch(t, eval_now, final=final)
+        srv._dispatch_round = hooked
+
+    for name in ROBUST_CELLS:
+        want = ROBUST_WINNERS[name]
+        logged = name in ("selfheal", "nan_storm")
+        jsonl = str(work / f"robust_{name}.jsonl") if logged else None
+        run_kw, setup, calls = {}, None, None
+        if name == "selfheal":
+            run_kw = {"audit_sync": True, "checkpoint_every": 30,
+                      "checkpoint_path": str(ck)}
+            setup = keep_snapshots
+        elif name == "robust_trimmed":
+            def setup(srv):
+                nonlocal calls
+                calls = record_screened_steps(srv, STEP_CALLS)
+        srv, logs, rows, info = robust_cell(
+            OPS, obs, data, name, jsonl=jsonl, setup=setup,
+            warm=1 if name == "nan_storm" else 5, **run_kw)
+        launches += info["launches"]
+        require(info["launches"] == 26, f"{name}: stage 1 made "
+                f"{info['launches']} lloyd_step launches, expected 26")
+        held = check_robust_cell(name, srv, logs, rows, want,
+                                 drift.get(name))
+        line = (f"robust {name} (device, {len(logs)} rounds): winners and "
+                f"screen counts = ROBUST_WINNERS in rounds 0-{held - 1}")
+        if srv.cfg.watchdog_enabled:
+            got = (srv.watchdog_totals["rollbacks"],
+                   srv.watchdog_totals["snapshots"])
+            if len(set(want["spread"]["rollbacks"].values())) == 1:
+                require(got == (want["rollbacks"], want["snapshots"]),
+                        f"{name}: rollbacks, snapshots {got}, the JAX "
+                        f"package's {want['rollbacks']}, "
+                        f"{want['snapshots']}")
+            line += f" rollbacks={got[0]} snapshots={got[1]}"
+        if logged:
+            events = SCHEMA.load_jsonl(jsonl)
+            rb = [[e["round"], e["restored_round"], e["reason"]]
+                  for e in events if e["kind"] == "watchdog"
+                  and e.get("name") == "rollback"]
+            require(rb == [list(r) for r in want["rollback_events"]],
+                    f"{name}: rollback events {rb}, the JAX package's "
+                    f"{want['rollback_events']}")
+            errs = SCHEMA.validate_events(
+                events, rounds=len(logs), eval_every=srv.cfg.eval_every,
+                reputation_mode=srv.cfg.reputation_mode,
+                min_rollbacks=1 if name == "nan_storm" else None)
+            require(not errs, f"{name}: the event log fails the schema: "
+                    f"{errs[:3]}")
+            line += f" events={len(events)} schema ok"
+        final = logs[-1].test_acc
+        require(math.isfinite(final), f"{name}: final accuracy {final!r}")
+        evals = [l.test_acc for l in logs if not l.eval_skipped][-3:]
+        late[name] = sum(evals) / len(evals)
+        if want["spread"]["agree_through"] is None:
+            # the same clients every round in every run: the final
+            # accuracy is held (a cell whose runs pick other clients after
+            # agree_through is a different run from there on)
+            lo, hi = envelope(want["spread"]["final_acc"].values(), 0.02)
+            require(lo <= final <= hi, f"{name}: final accuracy {final!r} "
+                    f"outside [{lo!r}, {hi!r}] (the JAX package's "
+                    f"runtimes: {want['spread']['final_acc']})")
+        if name in LONG_CELLS:
+            # settled by round 80 in every run of either package: held on
+            # the last three evals whether or not the selections agree
+            lo, hi = envelope(want["spread"]["late_acc"].values(), 0.02)
+            require(lo <= late[name] <= hi, f"{name}: last three evals "
+                    f"{evals} (mean {late[name]!r}) outside [{lo!r}, "
+                    f"{hi!r}] (the JAX package's runtimes: "
+                    f"{want['spread']['late_acc']})")
+        if name != "robust_none":
+            require(all(torch.isfinite(v).all() for v in
+                        srv.params.values()), f"{name}: non-finite params")
+        acc[name], warm[name] = final, info.get("warm_s_per_round")
+        if srv.defended:
+            t = srv.defense_totals
+            line += (f" quarantined={t['quarantined']} "
+                     f"screened={t['screened']} "
+                     f"banned={t['banned_final']}")
+            if name in drift:
+                ranges = {k: v for k, v in drift[name].items()
+                          if k.startswith(("banned_", "screened_"))}
+                line += (" banned,screened after 60 rounds="
+                         f"{totals_at(rows, ROBUST_ROUNDS)} (the JAX "
+                         f"runs' ranges {ranges})")
+        every = {l.round: l.test_acc for l in logs if not l.eval_skipped}
+        line += (f" lloyd_step launches={info['launches']} final_acc="
+                 f"{final!r} jax_final_acc={want['spread']['final_acc']} "
+                 f"last_three_evals={late[name]!r} evals={every} "
+                 f"stage1_s={info['stage1_s']!r}")
+        if name != "nan_storm":
+            line += f" warm_s_per_round={warm[name]!r} " + " ".join(
+                f"{k}={v!r}" for k, v in info["per_round"].items())
+        print(line + f" [{card}]", flush=True)
+        print("  host s by span: " + " ".join(
+            f"{k}={v!r}" for k, v in info["spans"].items()), flush=True)
+        if name == "robust_trimmed":
+            require(len(calls) == STEP_CALLS, f"{name}: recorded "
+                    f"{len(calls)} screened-step calls")
+            check_screened_calls(name, srv.cfg, calls, card)
+        if name == "selfheal":
+            full_logs = logs
+            print(f"  selfheal: warm rounds 2-{len(logs) - 1} ran under "
+                  "set_sync_debug_mode('error') on device", flush=True)
+
+    # ---- the qualitative result ---------------------------------------
+    # undefended FedAvg collapses under the scale attack, as in every JAX
+    # run.  The self-healing stack ends within 0.05 of clean once both
+    # have settled: at 100 rounds, on the mean of the last three evals (at
+    # round 60 every run of either package sits on its learning onset).
+    # Whether trimmed ends within 0.05 of clean is read, not held: the
+    # JAX package's own runs end at 0.08-0.21 there.
+    require(late["clean"] - acc["robust_none"] >= 0.5, "undefended FedAvg "
+            f"under the scale attack ends at {acc['robust_none']!r}, not "
+            f"far below clean {late['clean']!r}")
+    gap = late["clean"] - late["selfheal"]
+    require(gap <= 0.05, f"selfheal at 100 rounds ends at "
+            f"{late['selfheal']!r} (last three evals), not within 0.05 "
+            f"of clean's {late['clean']!r}")
+    gaps = {n: late["clean"] - acc[n] for n in ("robust_none",
+                                                "robust_trimmed",
+                                                "static_clip")}
+    jax_acc = {n: ROBUST_WINNERS[n]["spread"]["final_acc"] for n in acc}
+    print(f"robust result: final acc {acc}; gap to clean's last three "
+          f"evals {gaps}; trimmed within 0.05 of clean: "
+          f"{gaps['robust_trimmed'] <= 0.05}; at 100 rounds (last three "
+          f"evals) clean {late['clean']!r} selfheal {late['selfheal']!r}, "
+          f"gap {gap!r}; the JAX package's runtimes: final {jax_acc}",
+          flush=True)
+    print(f"defended overhead (warm s per round vs clean): trimmed "
+          f"{warm['robust_trimmed'] / warm['clean']!r}x, selfheal "
+          f"{warm['selfheal'] / warm['clean']!r}x, clean_watchdog "
+          f"{warm['clean_watchdog'] / warm['clean']!r}x [{card}]",
+          flush=True)
+
+    # ---- resume of selfheal from its round-30 snapshot ----------------
+    check_resume(OPS, obs, data, ck, full_logs, ROBUST_WINNERS["selfheal"])
+
+    # ---- rounds from the JAX package's own states ---------------------
+    robust_anchor_rounds(OPS, obs, data, card)
+
+    # ---- the audited selfheal warm loop on vectorized -----------------
+    srv, logs, rows, info = robust_cell(OPS, obs, data, "selfheal",
+                                        runtime="vectorized",
+                                        rounds=VEC_AUDIT_ROUNDS,
+                                        audit_sync=True)
+    launches += info["launches"]
+    require(info["launches"] == 26, f"selfheal vectorized: "
+            f"{info['launches']} lloyd_step launches")
+    held = check_robust_cell("selfheal vectorized", srv, logs, rows,
+                             ROBUST_WINNERS["selfheal"], drift["selfheal"])
+    print(f"selfheal vectorized ({VEC_AUDIT_ROUNDS} rounds): winners and "
+          f"screen counts = ROBUST_WINNERS in rounds 0-{held - 1}, warm "
+          f"rounds 2-{VEC_AUDIT_ROUNDS - 1} under "
+          f"set_sync_debug_mode('error'), banned,screened after 60 rounds="
+          f"{totals_at(rows, ROBUST_ROUNDS)} (JAX runs' range "
+          f"{drift['selfheal']['banned_60']}, "
+          f"{drift['selfheal']['screened_60']}) final_acc="
+          f"{logs[-1].test_acc!r} warm_s_per_round="
+          f"{info['warm_s_per_round']!r} [{card}]", flush=True)
+
+    screened_step_times(obs, card, warm["selfheal"])
+    print(f"robust path lloyd_step launches: {launches} (26 in each "
+          f"stage 1, none in a resumed leg or an anchor round)", flush=True)
+    return launches
+
+
 def toolkit(BUILD, name: str) -> str:
     """A program of the CUDA toolkit whose nvcc builds the kernels."""
     tool = Path(BUILD._nvcc()).parent / name
@@ -1502,6 +2139,10 @@ def main() -> int:
     phase("dynamics path", t0)
     dyn_launches = dynamics_path(OPS, TRAIN, obs, servers, card)
 
+    # ---- robust path ----------------------------------------------------
+    phase("robust path", t0)
+    robust_launches = robust_path(OPS, obs, card)
+
     # ---- selection path -------------------------------------------------
     phase("selection path", t0)
     selection_path(OPS, TRAIN, cuda)
@@ -1525,9 +2166,14 @@ def main() -> int:
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                 "bound_by": m["bound_by"], "library_ms": library_ms}
 
+    print(f"lloyd_step launches by path: dynamics {dyn_launches} (its "
+          f"churn-0.1 run), robust {robust_launches} (26 a run); the "
+          f"kernels line's launches is their total, "
+          f"{dyn_launches + robust_launches}", flush=True)
     print(json.dumps({"kernels": [
         row("lloyd_step", "src/repro_torch/csrc/kmeans.cu",
-            "src/repro/kernels/kmeans.py:144", dyn_launches,
+            "src/repro/kernels/kmeans.py:144",
+            dyn_launches + robust_launches,
             shapes["main"], None),
         row("kmeans_assign", "src/repro_torch/csrc/kmeans.cu",
             "src/repro/kernels/kmeans.py:109", assign_launches,

@@ -30,24 +30,41 @@ it folds into the global model FedBuff-style at goal-count or timeout
 boundaries.  With dynamics off both aggregation modes take the plain
 path, so churn-0 runs stay bit-identical.
 
+With ``cfg.defended`` (any ``--defense``, or an active ``--attack``)
+stage 3 is the Byzantine-tolerant path: the runtime returns the cohort's
+per-client flat deltas, and one screened step (``core/aggregation.py``)
+corrupts the adversaries' rows (``sim/dynamics.corrupt_updates``),
+quarantines, screens, aggregates and scatters strikes into
+``SelectionState.strikes``, which the round step turns into bans or
+priced bids.  With ``--watchdog on`` a divergence watchdog keeps a ring
+of the last healthy snapshots (the checkpoint tree, held by reference),
+judges every drained eval, and on a divergence restores the newest
+healthy entry, tightens the defense, decays the server step and perturbs
+the key chain.  The ring holds tensors by reference, as the JAX package
+holds its immutable arrays: nothing on the round path writes into a
+tensor the server already holds (every in-place op is on a fresh one),
+so a snapshot stays as it was taken.
+
 ``run(checkpoint_every=, checkpoint_path=, resume=)`` snapshots and
 restores the server in the JAX package's checkpoint format
-(``checkpoint/io.py``).  The defended aggregation path and the divergence
-watchdog are not ported yet (ROADMAP.md, queue 1): a config that would
-need them raises ``NotImplementedError``.
+(``checkpoint/io.py``), defense state, server step and rollback count
+included.
 """
 from __future__ import annotations
 
 import json
 import os
-from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from collections import deque
+from copy import deepcopy
+from dataclasses import dataclass, field, replace as dc_replace
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import obs, rng
 from repro_torch.configs.base import FLConfig
+from repro_torch.core import aggregation as AGG
 from repro_torch.core import clustering as CL
 from repro_torch.core import energy as EN
 from repro_torch.core import rounds as RND
@@ -72,6 +89,10 @@ SCHEME_METRIC_KEYS = ("fairness_hist_std", "budget_spent",
 DYN_METRIC_KEYS = ("num_completed", "num_late", "num_dropped",
                    "staleness_mean", "staleness_max", "mean_latency",
                    "num_avail")
+
+# round scalars the defended round step adds (SelectionState carries
+# strikes): the ban count and the trust score the price mode bids against
+DEF_METRIC_KEYS = ("num_banned", "trust_mean", "trust_min")
 
 
 @dataclass
@@ -101,6 +122,9 @@ class _PendingRound:
     metrics: Dict[str, torch.Tensor]
     eval_pair: Optional[tuple]
     dyn: Optional[Dict[str, float]] = None
+    # the screened step's reports of every defended sub-cohort the round
+    # dispatched (late first, main last), fetched with the metrics
+    defense: Optional[List[Dict[str, torch.Tensor]]] = None
 
 
 @dataclass
@@ -109,25 +133,30 @@ class _BufferedUpdate:
     sub-cohort's aggregated param delta against the globals it trained
     from, ``mass`` its data mass (sum of local sizes), ``round`` the
     dispatch round and ``arrival`` the first round the server can fold
-    it (dispatch + 1: late means after the deadline)."""
+    it (dispatch + 1: late means after the deadline).  ``mass_scale`` is
+    the screened report's survivor fraction (a 0-d device tensor, None
+    undefended): the fold scales the mass by it, so a fully quarantined
+    late cohort folds with zero mass."""
 
     delta: Dict[str, torch.Tensor]
     mass: float
     round: int
     arrival: int
+    mass_scale: Optional[torch.Tensor] = None
 
 
-def check_supported(cfg: FLConfig) -> None:
-    """Refuse every config the JAX server would route to code the port
-    does not have yet (ROADMAP.md, queue 1)."""
-    unported = []
-    if cfg.defended:
-        unported.append("the defended aggregation path (defense/attack)")
-    if cfg.watchdog_enabled:
-        unported.append("the divergence watchdog")
-    if unported:
-        raise NotImplementedError(
-            "not ported yet (ROADMAP.md, queue 1): " + ", ".join(unported))
+@dataclass
+class _RingEntry:
+    """One watchdog snapshot: ``tree`` is the :meth:`FederatedServer.
+    _ckpt_tree` of the moment (tensors by reference), plus the host state
+    a rollback restores as it was."""
+
+    round: int
+    tree: Dict[str, Any]
+    reward: float
+    last_eval: Tuple[float, float]
+    dyn_rng_state: Optional[dict] = None
+    host_avail: Optional[np.ndarray] = None
 
 
 def _key_words(key: torch.Tensor) -> np.ndarray:
@@ -146,7 +175,6 @@ class FederatedServer:
                  assign_fn=None, seed: Optional[int] = None,
                  device="cuda"):
         self.device = resolve_device(device)
-        check_supported(cfg)
         self.cfg = cfg
         self.adapter = adapter
         self.clients = clients
@@ -157,6 +185,7 @@ class FederatedServer:
         self.runtime = make_runtime(cfg, adapter, x, y, clients, self.device)
         n = cfg.num_clients
         self.dynamics = cfg.dynamics_enabled
+        self.defended = cfg.defended
         self.state = SEL.SelectionState(
             clusters=torch.zeros(n, dtype=torch.int32, device=self.device),
             residual=EN.init_energy(cfg, self._next_key(), self.device),
@@ -166,6 +195,9 @@ class FederatedServer:
             # None with dynamics off, so the plain round is unchanged
             staleness=(torch.zeros(n, dtype=torch.int32, device=self.device)
                        if self.dynamics else None),
+            # the reputation ledger, only on the defended path
+            strikes=(torch.zeros(n, dtype=torch.float32, device=self.device)
+                     if self.defended else None),
             scheme_state=SCH.init_scheme_state(cfg, self.device),
         )
         self.global_hist = global_histogram(y, cfg.num_classes)
@@ -196,6 +228,34 @@ class FederatedServer:
                                    if m is None else np.asarray(m, bool))
             self.outcome_log: List[np.ndarray] = []   # per-round codes
             self._late_buffer: List[_BufferedUpdate] = []
+        if self.defended:
+            # the adversary chain and the Byzantine set are fixed at init
+            # (pure functions of cfg); one screened step takes every
+            # cohort, padded to the static capacity
+            self._adv_root = DYN.adversary_key(cfg)
+            self._adv_mask = np.asarray(obs.device_get(
+                DYN.adversary_mask(cfg, self.device)), bool)
+            self._screen_cap = AGG.screen_capacity(cfg)
+            self._screen_step = AGG.make_screened_step(cfg)
+            self._defense_state = AGG.init_defense_state(cfg, self.device)
+            # host tallies, filled at flush boundaries
+            self.defense_totals: Dict[str, int] = {
+                "quarantined": 0, "screened": 0, "banned_final": 0}
+        self._watchdog = cfg.watchdog_enabled
+        if self._watchdog:
+            # the divergence watchdog: a ring of the last healthy
+            # snapshots, a detector over the drained evals, and the server
+            # step (a float32 value; exactly 1.0 until a rollback, where
+            # scaling by it and blending with it are the identity)
+            self._wd_ring: deque = deque(maxlen=max(int(cfg.watchdog_ring),
+                                                    1))
+            self._srv_lr = 1.0
+            self._wd_loss_ema: Optional[float] = None
+            self._wd_acc_peak = float("-inf")
+            self._wd_healthy = False     # a healthy eval since the rollback
+            self._wd_rollbacks = 0
+            self.watchdog_totals: Dict[str, int] = {"rollbacks": 0,
+                                                    "snapshots": 0}
         # host mirror of participation counts (seeds stage-3 shuffles)
         self._host_history = np.zeros((n,), np.int64)
         self._test = obs.device_put(
@@ -281,8 +341,8 @@ class FederatedServer:
                 sel_idx = np.nonzero(obs.device_get(win))[0]
             with obs.span("round/train", round=t,
                           cohort=int(sel_idx.size)):
-                new_params = self.runtime.train_cohort(
-                    self.params, sel_idx, self._host_history)
+                new_params, new_state, defense = self._train_round(
+                    self.params, sel_idx, t, new_state)
             if new_params is not None:
                 self.params = new_params
             else:
@@ -293,7 +353,68 @@ class FederatedServer:
             self._host_history[sel_idx] += 1
             self._pending.append(_PendingRound(
                 round=t, selected=sel_idx, metrics=metrics,
-                eval_pair=self._maybe_eval(t, eval_now)))
+                eval_pair=self._maybe_eval(t, eval_now),
+                defense=[defense] if defense is not None else None))
+
+    def _train_round(self, params0, train_idx: np.ndarray, t: int,
+                     new_state: SEL.SelectionState):
+        """Stage 3 of a (sub-)cohort that aggregates now: returns
+        ``(new_params or None, new_state, report or None)``.  Defended,
+        the screened step's strikes go into ``new_state``; undefended
+        with the watchdog on, the FedAvg result is blended with the
+        server step (the identity at 1.0)."""
+        if self.defended:
+            new_params, rep, strikes = self._train_defended(
+                params0, train_idx, t, 0, new_state.strikes)
+            return new_params, dc_replace(new_state, strikes=strikes), rep
+        new_params = self.runtime.train_cohort(params0, train_idx,
+                                               self._host_history)
+        if new_params is not None and self._watchdog:
+            s = self._srv_lr - 1.0
+            new_params = {k: b + s * (b - params0[k])
+                          for k, b in new_params.items()}
+        return new_params, new_state, None
+
+    def _train_defended(self, params0, train_idx: np.ndarray, t: int,
+                        chan: int, strikes):
+        """The defended stage 3: the runtime's per-client flat deltas go
+        through the screened step, whose aggregate delta (times the
+        server step with the watchdog on) is applied to ``params0``.
+        ``chan`` separates the round's adversary keys of the main (0) and
+        the buffered late (1) sub-cohorts.  Returns ``(new_params, report,
+        new_strikes)``, ``(None, None, strikes)`` for an empty cohort."""
+        upd = self.runtime.train_cohort_updates(params0, train_idx,
+                                                self._host_history)
+        if upd is None:
+            return None, None, strikes
+        ids = np.asarray(upd.client_idx, np.int32)
+        real = np.flatnonzero(ids >= 0)
+        if real.size == 0:
+            return None, None, strikes
+        cap = self._screen_cap
+        assert real.size <= cap, (f"a cohort of {real.size} exceeds the "
+                                  f"screen capacity {cap}")
+        # one gather by a host-built plan drops the runtimes' padding rows
+        # and pads to the static capacity (padding slots gather row 0 and
+        # are masked by valid=False); the plan arrays are the step's only
+        # uploads, in one counted copy
+        gidx = np.zeros((cap,), np.int64)
+        gidx[:real.size] = real
+        w = np.zeros((cap,), np.float32)
+        w[:real.size] = np.asarray(upd.weights, np.float32)[real]
+        idp = np.full((cap,), -1, np.int32)
+        idp[:real.size] = ids[real]
+        valid = idp >= 0
+        adv = valid & self._adv_mask[np.clip(idp, 0, None)]
+        gd, wd, vd, ad, idd, rnd = obs.device_put(
+            (gidx, w, valid, adv, idp, np.int32(t)), self.device)
+        key = rng.fold_in(self._adv_root, 2 * t + chan + 1)
+        agg, new_strikes, self._defense_state, report = self._screen_step(
+            upd.deltas.index_select(0, gd), wd, vd, ad, idd, strikes,
+            self._defense_state, rnd, key)
+        if self._watchdog:
+            agg = agg * self._srv_lr
+        return AGG.apply_delta(params0, agg), report, new_strikes
 
     def _maybe_eval(self, t: int, eval_now: bool) -> Optional[tuple]:
         if not eval_now:
@@ -348,14 +469,33 @@ class FederatedServer:
         if not (force or len(arrived) >= self.cfg.buffer_goal
                 or t - oldest >= self.cfg.buffer_timeout):
             return 0
-        total = sum(e.mass for e in arrived)
+        # defended entries carry their survivor fraction on the device:
+        # one counted fetch scales the masses, so quarantined rows carry
+        # no weight in the fold
+        if any(e.mass_scale is not None for e in arrived):
+            scales = obs.device_get(
+                [e.mass_scale if e.mass_scale is not None
+                 else np.float32(1.0) for e in arrived])
+            masses = [e.mass * float(s) for e, s in zip(arrived, scales)]
+        else:
+            masses = [e.mass for e in arrived]
+        total = sum(masses)
+        if total <= 0.0:
+            # every arrived row was quarantined: drop the entries loudly
+            # instead of folding a 0/0 into the params
+            self._late_buffer = [e for e in self._late_buffer
+                                 if e.arrival > t]
+            obs.OBS.counter("dyn/buffer_all_quarantined")
+            obs.OBS.event("dynamics", name="buffer/all_quarantined",
+                          round=t, entries=len(arrived))
+            return 0
         with obs.span("round/buffer_fold", round=t, entries=len(arrived)):
             p = self.params
-            for e in arrived:
+            for e, mass in zip(arrived, masses):
                 # the coefficient enters as a float32 scalar, as in JAX
                 c = float(np.float32(
                     DYN.staleness_weight(self.cfg, t - e.round)
-                    * e.mass / total))
+                    * mass / total))
                 p = {k: v + c * e.delta[k] for k, v in p.items()}
             self.params = p
         self._late_buffer = [e for e in self._late_buffer if e.arrival > t]
@@ -399,23 +539,36 @@ class FederatedServer:
 
             params0 = self.params
             buffered = cfg.aggregation == "buffered"
+            defense: List[Dict[str, torch.Tensor]] = []
             if buffered and late.size:
                 # the late sub-cohort trains from the same globals it was
                 # dispatched with; its aggregate becomes a buffered delta
+                rep = None
                 with obs.span("round/train_late", round=t,
                               cohort=int(late.size)):
-                    late_agg = self.runtime.train_cohort(
-                        params0, late, self._host_history)
+                    if self.defended:
+                        late_agg, rep, strikes = self._train_defended(
+                            params0, late, t, 1, new_state.strikes)
+                        new_state = dc_replace(new_state, strikes=strikes)
+                        if rep is not None:
+                            defense.append(rep)
+                    else:
+                        late_agg = self.runtime.train_cohort(
+                            params0, late, self._host_history)
                 if late_agg is not None:
                     self._late_buffer.append(_BufferedUpdate(
                         delta={k: late_agg[k] - params0[k]
                                for k in params0},
                         mass=float(self._host_sizes[late].sum()),
-                        round=t, arrival=t + 1))
+                        round=t, arrival=t + 1,
+                        mass_scale=(rep["survivor_frac"]
+                                    if rep is not None else None)))
             with obs.span("round/train", round=t,
                           cohort=int(train_idx.size)):
-                new_params = self.runtime.train_cohort(
-                    params0, train_idx, self._host_history)
+                new_params, new_state, rep = self._train_round(
+                    params0, train_idx, t, new_state)
+                if rep is not None:
+                    defense.append(rep)
             if new_params is not None:
                 self.params = new_params
             else:
@@ -436,12 +589,15 @@ class FederatedServer:
             dyn_row["buffer_folded"] = folded
             self._pending.append(_PendingRound(
                 round=t, selected=sel_idx, metrics=metrics,
-                eval_pair=self._maybe_eval(t, eval_now), dyn=dyn_row))
+                eval_pair=self._maybe_eval(t, eval_now), dyn=dyn_row,
+                defense=defense or None))
 
     def _flush_pending(self) -> None:
-        """Fetch every pending round's scalars in one counted copy, turn
-        each entry into a RoundLog and a ``round`` row of the event
-        stream, and flush the stream (the logging boundary)."""
+        """Fetch every pending round's scalars (metrics, eval pair,
+        screened reports) in one counted copy, turn each entry into a
+        RoundLog and a ``round`` row of the event stream, run the
+        watchdog over the drained evals, and flush the stream (the
+        logging boundary)."""
         if not self._pending:
             return
         with obs.span("round/drain", rounds=len(self._pending),
@@ -451,13 +607,20 @@ class FederatedServer:
                 flat.extend(p.metrics.values())
                 if p.eval_pair is not None:
                     flat.extend(p.eval_pair)
+                for d in p.defense or ():
+                    flat.extend(d.values())
             vals = iter(obs.device_get(torch.stack(
                 [v.float().reshape(()) for v in flat])).tolist())
+        # the watchdog's first trigger in this drain: at most one rollback
+        # a flush (later evals ran against the already-poisoned params)
+        wd_trigger: Optional[Tuple[str, int]] = None
+        wd_healthy_seen = False
         for p in self._pending:
             m = {k: next(vals) for k in p.metrics}
             skipped = p.eval_pair is None
             acc, loss = ((next(vals), next(vals)) if not skipped
                          else (float("nan"), float("nan")))
+            defs = [{k: next(vals) for k in d} for d in p.defense or ()]
             if not skipped:
                 self._last_eval = (acc, loss)
                 if not (np.isfinite(acc) and np.isfinite(loss)):
@@ -466,6 +629,13 @@ class FederatedServer:
                     obs.OBS.counter("round/diverged")
                     obs.OBS.event("defense", name="round/diverged",
                                   round=p.round)
+                if self._watchdog and wd_trigger is None:
+                    reason = self._wd_detect(acc, loss)
+                    if reason is not None:
+                        wd_trigger = (reason, p.round)
+                    else:
+                        wd_healthy_seen = True
+                        self._wd_healthy = True
             self.total_client_reward += m["client_reward_sum"]
             scheme = {k: m[k] for k in SCHEME_METRIC_KEYS if k in m}
             self.logs.append(RoundLog(
@@ -476,10 +646,16 @@ class FederatedServer:
                 vds_gap=m["vds_gap"], eval_skipped=skipped,
                 scheme_metrics=scheme))
             # the round's series row: host floats from the fetch above
-            extra = {k: m[k] for k in DYN_METRIC_KEYS if k in m}
+            extra = {k: m[k] for k in DYN_METRIC_KEYS + DEF_METRIC_KEYS
+                     if k in m}
             extra.update(scheme)
             if p.dyn is not None:
                 extra.update({k: float(v) for k, v in p.dyn.items()})
+            if "num_banned" in extra:
+                self.defense_totals["banned_final"] = int(
+                    extra["num_banned"])
+            if defs:
+                self._record_defense(p.round, defs, extra)
             obs.OBS.record_round(
                 p.round, test_acc=acc, test_loss=loss,
                 energy_std=m["energy_std"], mean_bid=m["mean_bid"],
@@ -488,7 +664,114 @@ class FederatedServer:
                 vds_gap=m["vds_gap"], num_selected=int(p.selected.size),
                 eval_skipped=skipped, **extra)
         self._pending.clear()
+        if self._watchdog:
+            if wd_trigger is not None:
+                self._wd_rollback(*wd_trigger)
+            elif wd_healthy_seen:
+                # the newest drained eval vouches for the current params
+                self._wd_snapshot(self.logs[-1].round if self.logs else 0)
         obs.flush()        # the logging boundary: sinks see I/O only here
+
+    def _record_defense(self, t: int, defs: List[Dict[str, float]],
+                        extra: Dict[str, float]) -> None:
+        """Fold one round's fetched screened reports (late first, main
+        last) into the totals, the round row and the event stream."""
+        nq = sum(d["num_quarantined"] for d in defs)
+        ns = sum(d["num_screened"] for d in defs)
+        self.defense_totals["quarantined"] += int(nq)
+        self.defense_totals["screened"] += int(ns)
+        main = defs[-1]     # the synchronous cohort's report
+        extra.update(num_quarantined=nq, num_screened=ns,
+                     **{k: main[k] for k in (
+                         "num_survivors", "survivor_frac", "clipped_frac",
+                         "update_norm_p50", "update_norm_p99",
+                         "defense_pressure")})
+        if nq > 0:
+            obs.OBS.counter("defense/quarantined", int(nq))
+            obs.OBS.event("defense", name="quarantine", round=t,
+                          quarantined=int(nq))
+        if ns > 0:
+            obs.OBS.counter("defense/screened", int(ns))
+            obs.OBS.event("defense", name="band_screen", round=t,
+                          screened=int(ns))
+
+    # -- divergence watchdog -------------------------------------------
+    def _wd_detect(self, acc: float, loss: float) -> Optional[str]:
+        """Judge one drained eval: None when healthy (the detector state
+        advances), else the reason.  Loss against a slow EMA (a spike is
+        ``watchdog_loss_mult`` x the EMA + 0.1), accuracy against its
+        running peak."""
+        cfg = self.cfg
+        if not (np.isfinite(acc) and np.isfinite(loss)):
+            return "non_finite_eval"
+        if (self._wd_loss_ema is not None
+                and loss > cfg.watchdog_loss_mult * self._wd_loss_ema + 0.1):
+            return "loss_spike"
+        if acc < self._wd_acc_peak - cfg.watchdog_acc_drop:
+            return "acc_collapse"
+        self._wd_loss_ema = (loss if self._wd_loss_ema is None
+                             else 0.5 * self._wd_loss_ema + 0.5 * loss)
+        self._wd_acc_peak = max(self._wd_acc_peak, acc)
+        return None
+
+    def _wd_snapshot(self, t: int) -> None:
+        """Push the current server state onto the ring: the checkpoint
+        tree by reference, no copy of any tensor."""
+        self._wd_ring.append(_RingEntry(
+            round=t, tree=self._ckpt_tree(),
+            reward=self.total_client_reward, last_eval=self._last_eval,
+            dyn_rng_state=(deepcopy(self._dyn_rng.bit_generator.state)
+                           if self.dynamics else None),
+            host_avail=(self._host_avail.copy() if self.dynamics
+                        else None)))
+        self.watchdog_totals["snapshots"] += 1
+
+    def _wd_rollback(self, reason: str, bad_round: int) -> None:
+        """Restore the newest healthy ring entry, escalate the defense's
+        tightening from its current value, decay the server step and fold
+        the key chain with ``0x5AFE + rollbacks`` so the retried rounds
+        take another path.  When the previous rollback never saw a
+        healthy eval, the newest entry is suspect and the next older one
+        restores instead."""
+        cfg = self.cfg
+        if not self._wd_ring:
+            return
+        if not self._wd_healthy and len(self._wd_ring) > 1:
+            self._wd_ring.pop()
+        e = self._wd_ring[-1]
+        tree = e.tree
+        self._wd_rollbacks += 1
+        self.params = tree["params"]
+        self.state = tree["state"]
+        self.key = rng.fold_in(_key_from_words(tree["key"]),
+                               0x5AFE + self._wd_rollbacks)
+        self._host_history = np.asarray(tree["host_history"],
+                                        np.int64).copy()
+        if self.dynamics:
+            self.dyn_state = DYN.DynamicsState(avail=tree["dyn_avail"])
+            self._dyn_key = _key_from_words(tree["dyn_key"])
+            self._host_avail = e.host_avail.copy()
+            self._dyn_rng.bit_generator.state = deepcopy(e.dyn_rng_state)
+            # in-flight late updates trained from abandoned params
+            self._late_buffer = []
+        if self.defended:
+            ds = tree["defense_state"]
+            if ds.tighten is not None:
+                ds = dc_replace(ds, tighten=self._defense_state.tighten
+                                * float(np.float32(cfg.watchdog_tighten)))
+            self._defense_state = ds
+        self._srv_lr = float(np.float32(self._srv_lr)
+                             * np.float32(cfg.watchdog_lr_decay))
+        self.total_client_reward = e.reward
+        self._last_eval = e.last_eval
+        self._wd_loss_ema = None
+        self._wd_acc_peak = float("-inf")
+        self._wd_healthy = False
+        self.watchdog_totals["rollbacks"] = self._wd_rollbacks
+        obs.OBS.counter("watchdog/rollbacks")
+        obs.OBS.event("watchdog", name="rollback", round=bad_round,
+                      restored_round=e.round, reason=reason,
+                      rollbacks=self._wd_rollbacks)
 
     # -- crash tolerance -----------------------------------------------
     def _ckpt_tree(self) -> Dict[str, Any]:
@@ -504,6 +787,10 @@ class FederatedServer:
         if self.dynamics:
             tree["dyn_avail"] = self.dyn_state.avail
             tree["dyn_key"] = _key_words(self._dyn_key)
+        if self.defended:
+            tree["defense_state"] = self._defense_state
+        if self._watchdog:
+            tree["server_lr"] = np.float32(self._srv_lr)
         return tree
 
     def save_checkpoint(self, path: str, step: int) -> None:
@@ -515,6 +802,8 @@ class FederatedServer:
         extra: Dict[str, Any] = {
             "total_client_reward": self.total_client_reward,
             "scheme_select": self.cfg.scheme_select}
+        if self._watchdog:
+            extra["watchdog_rollbacks"] = self._wd_rollbacks
         if self.dynamics:
             extra["dyn_rng_state"] = self._dyn_rng.bit_generator.state
         with obs.span("run/checkpoint", step=step):
@@ -555,6 +844,12 @@ class FederatedServer:
                 (tree["dyn_avail"], self.state.clusters))
             self._host_avail = np.asarray(avail, bool)
             self._host_clusters = np.asarray(clusters, np.int64)
+        if self.defended:
+            self._defense_state = tree["defense_state"]
+        if self._watchdog:
+            self._srv_lr = float(tree["server_lr"])
+            self._wd_rollbacks = int(extra.get("watchdog_rollbacks", 0))
+            self.watchdog_totals["rollbacks"] = self._wd_rollbacks
         self.total_client_reward = float(
             extra.get("total_client_reward", 0.0))
         st = extra.get("dyn_rng_state")
@@ -599,16 +894,25 @@ class FederatedServer:
         if warmup is not None:    # device runtime: meet every class shape
             with obs.span("run/warmup"):
                 warmup(self.params)
+        if self._watchdog and not self._wd_ring:
+            # the pre-training state, so even a round-0 divergence has a
+            # healthy entry to roll back to
+            self._wd_snapshot(start - 1)
         T = rounds if rounds is not None else self.cfg.rounds
         for t in range(start, T):
             final = t == T - 1
+            printing = verbose and (t % 5 == 0 or final)
             eval_now = self._eval_due(t, final=final)
             if audit_sync and t >= audit_warm_rounds:
                 with obs.sync_audit():
                     self._dispatch_round(t, eval_now, final=final)
             else:
                 self._dispatch_round(t, eval_now, final=final)
-            if verbose and (t % 5 == 0 or final):
+            if self._watchdog and eval_now and not printing:
+                # with the watchdog on every eval round is a flush
+                # boundary, so a divergence is caught within one cadence
+                self._flush_pending()
+            if printing:
                 self._flush_pending()
                 log = self.logs[-1]
                 acc, loss = self._last_eval

@@ -18,11 +18,15 @@ selection``.
     second run and reports the first.
 
 Fleet dynamics (``--churn``, ``--deadline``, ``--straggler-profile``,
-``--aggregation buffered``, ``--buffer-goal``, ``--buffer-timeout``),
-checkpoints (``--checkpoint-every``, ``--checkpoint-path``, ``--resume``)
-and the event stream (``--log-jsonl``, ``--log-csv``, validated by
-``python -m repro_torch.obs.schema``; ``--audit-sync``, ``--profile-dir``)
-run as in the JAX package.
+``--aggregation buffered``, ``--buffer-goal``, ``--buffer-timeout``), the
+Byzantine-tolerant path (``--adversary-frac``, ``--attack``,
+``--attack-scale``, ``--defense``, ``--defense-mode``,
+``--reputation-mode``) and the divergence watchdog (``--watchdog``,
+``--watchdog-ring``), checkpoints (``--checkpoint-every``,
+``--checkpoint-path``, ``--resume``) and the event stream
+(``--log-jsonl``, ``--log-csv``, validated by ``python -m
+repro_torch.obs.schema``; ``--audit-sync``, ``--profile-dir``) run as in
+the JAX package.
 
 It takes the JAX CLI's flags with the same defaults (``python -m
 repro.launch.train``), plus ``--device``:
@@ -35,6 +39,9 @@ repro.launch.train``), plus ``--device``:
   python -m repro_torch.launch.train --mode paper --runtime vectorized \
       --churn 0.1 --deadline 1.5 --aggregation buffered \
       --log-jsonl runs/events.jsonl --audit-sync
+  python -m repro_torch.launch.train --mode paper --runtime device \
+      --adversary-frac 0.3 --attack sub_clip --defense clip \
+      --defense-mode adaptive --reputation-mode price --watchdog on
 
 The run is on the GPU unless ``--device cpu`` is given; ``cuda`` with no
 GPU raises.  TF32 is switched off for matmuls and cuDNN, so float32 stays
@@ -64,10 +71,7 @@ from repro_torch.device import resolve_device
 from repro_torch.sim import dynamics as DYN
 
 # flags of the JAX CLI whose features the port does not have yet
-UNPORTED_FLAGS = (
-    "arch", "cohort_devices", "adversary_frac", "attack", "attack_scale",
-    "defense", "defense_mode", "reputation_mode", "watchdog",
-    "watchdog_ring")
+UNPORTED_FLAGS = ("arch", "cohort_devices")
 
 
 def set_float32_precision() -> None:
@@ -89,7 +93,12 @@ def run_paper(args, device: torch.device, assign_fn=None) -> dict:
         churn=args.churn, deadline=args.deadline,
         straggler_profile=args.straggler_profile,
         aggregation=args.aggregation, buffer_goal=args.buffer_goal,
-        buffer_timeout=args.buffer_timeout)
+        buffer_timeout=args.buffer_timeout,
+        adversary_frac=args.adversary_frac, attack=args.attack,
+        attack_scale=args.attack_scale, defense=args.defense,
+        defense_mode=args.defense_mode,
+        reputation_mode=args.reputation_mode,
+        watchdog=args.watchdog, watchdog_ring=args.watchdog_ring)
     train, test = make_image_dataset(args.dataset, n_train=args.pool,
                                      n_test=args.pool // 6, seed=args.seed,
                                      device=device)
@@ -133,7 +142,41 @@ def run_paper(args, device: torch.device, assign_fn=None) -> dict:
             "num_late": int((codes == DYN.LATE).sum()),
             "num_dropped": int((codes == DYN.DROPPED).sum()),
         }
+    if srv.defended:
+        out["defense"] = {
+            "attack": cfg.attack, "adversary_frac": cfg.adversary_frac,
+            "defense": cfg.defense, "defense_mode": cfg.defense_mode,
+            "reputation_mode": cfg.reputation_mode,
+            "num_adversaries": int(srv._adv_mask.sum()),
+            "num_quarantined": srv.defense_totals["quarantined"],
+            "num_screened": srv.defense_totals["screened"],
+            "num_banned_final": srv.defense_totals["banned_final"],
+        }
+    if cfg.watchdog_enabled:
+        out["watchdog"] = {
+            "ring": cfg.watchdog_ring,
+            "rollbacks": srv.watchdog_totals["rollbacks"],
+            "snapshots": srv.watchdog_totals["snapshots"],
+        }
     return out
+
+
+def log_summaries(result: dict) -> None:
+    """The JAX CLI's closing ``defense ...`` and ``watchdog: ...`` lines,
+    word for word."""
+    if "defense" in result:
+        d = result["defense"]
+        obs.log(f"defense {d['defense']!r} ({d['defense_mode']}, "
+                f"reputation={d['reputation_mode']}) vs attack "
+                f"{d['attack']!r}: adversaries={d['num_adversaries']} "
+                f"quarantined={d['num_quarantined']} "
+                f"screened={d['num_screened']} "
+                f"banned={d['num_banned_final']}", always=True)
+    if "watchdog" in result:
+        w = result["watchdog"]
+        obs.log(f"watchdog: rollbacks={w['rollbacks']} "
+                f"snapshots={w['snapshots']} (ring={w['ring']})",
+                always=True)
 
 
 def run_selection(args, device: torch.device) -> dict:
@@ -309,6 +352,7 @@ def main(argv: Optional[List[str]] = None, *, assign_fn=None) -> dict:
             obs.log(f"final acc={result['test_acc'][-1]:.3f} "
                     f"energy_std={result['energy_std'][-1]:.3f} "
                     f"wall={result['wall_s']:.0f}s", always=True)
+        log_summaries(result)
     finally:
         # flush, and close the sinks this call attached (a caller's stay)
         obs.OBS.close_sinks(keep=attached)

@@ -15,6 +15,13 @@ Python loop over the minibatch steps (the JAX engine's ``lax.scan``):
     runtime (repro_torch.sim.fleet): it takes a capacity class's resident
     ``(P, n_cap, *feat)`` store, ``index_select``s the winners' rows and
     gathers each step's minibatch on the device by the plan's indices.
+  * :meth:`CohortEngine.train_bucket_updates` /
+    :meth:`train_class_updates` — the defended path's twins of
+    ``train_bucket`` / ``train_class``: the same local steps, returning
+    the ``(C, D)`` float32 per-client flat delta matrix the screened
+    aggregation (``core/aggregation.py``) takes instead of the FedAvg
+    partial (a padding row's params are the globals, so its delta is
+    all-zero).
   * :meth:`CohortEngine.gradient_features` — the paper's clustering
     feature: the mean flattened gradient over the T0 sample windows, one
     vmapped gradient over all clients per window index.
@@ -123,6 +130,14 @@ class CohortEngine:
                     global_params[k].dtype) for k, v in stacked.items()}
 
     @staticmethod
+    def _flat_deltas(stacked: Tree, global_params: Tree) -> torch.Tensor:
+        """(C, D) float32 per-client deltas against the globals, leaves
+        in sorted-key order (``core/aggregation.flat_delta``'s layout)."""
+        c = next(iter(stacked.values())).shape[0]
+        return _flatten_rows({k: v.float() - global_params[k].float()[None]
+                              for k, v in stacked.items()}, c)
+
+    @staticmethod
     def _bucket_tensors(b: CohortBucket, device):
         """The bucket's arrays on ``device``, in one counted upload."""
         return obs.device_put((b.xb, b.yb, b.step_mask, b.weights), device)
@@ -152,6 +167,29 @@ class CohortEngine:
                                             for k in agg}
         return agg
 
+    def train_bucket_updates(self, global_params: Tree,
+                             bucket: CohortBucket) -> torch.Tensor:
+        """(C, D) float32 per-client flat deltas of one host-packed
+        bucket (padding rows all-zero; ``bucket.client_idx`` marks them
+        -1)."""
+        self._note_shape(("bucket_upd", bucket.xb.shape))
+        xb, yb, mask, _ = self._bucket_tensors(bucket,
+                                               _device_of(global_params))
+        stacked = self._train_steps(
+            global_params,
+            ((xb[:, s], yb[:, s]) for s in range(xb.shape[1])), mask)
+        return self._flat_deltas(stacked, global_params)
+
+    def _class_steps(self, global_params: Tree, class_x, class_y, rows,
+                     plans, step_mask) -> Tree:
+        xg = class_x.index_select(0, rows)          # (C, n_cap, *feat)
+        yg = class_y.index_select(0, rows)
+        cl = torch.arange(rows.shape[0], device=rows.device)[:, None]
+        return self._train_steps(
+            global_params,
+            ((xg[cl, plans[:, s]], yg[cl, plans[:, s]])
+             for s in range(plans.shape[1])), step_mask)
+
     def train_class(self, global_params: Tree, class_x: torch.Tensor,
                     class_y: torch.Tensor, rows: torch.Tensor,
                     plans: torch.Tensor, step_mask: torch.Tensor,
@@ -164,14 +202,21 @@ class CohortEngine:
         the weighted FedAvg partial; partials across invocations add."""
         self._note_shape(("class", tuple(class_x.shape),
                           tuple(plans.shape)))
-        xg = class_x.index_select(0, rows)          # (C, n_cap, *feat)
-        yg = class_y.index_select(0, rows)
-        cl = torch.arange(rows.shape[0], device=rows.device)[:, None]
-        stacked = self._train_steps(
-            global_params,
-            ((xg[cl, plans[:, s]], yg[cl, plans[:, s]])
-             for s in range(plans.shape[1])), step_mask)
+        stacked = self._class_steps(global_params, class_x, class_y, rows,
+                                    plans, step_mask)
         return self._fedavg_partial(stacked, weights, global_params)
+
+    def train_class_updates(self, global_params: Tree,
+                            class_x: torch.Tensor, class_y: torch.Tensor,
+                            rows: torch.Tensor, plans: torch.Tensor,
+                            step_mask: torch.Tensor) -> torch.Tensor:
+        """(C_cap, D) float32 flat deltas of one capacity-class
+        invocation: :meth:`train_class`'s defended twin."""
+        self._note_shape(("class_upd", tuple(class_x.shape),
+                          tuple(plans.shape)))
+        return self._flat_deltas(
+            self._class_steps(global_params, class_x, class_y, rows, plans,
+                              step_mask), global_params)
 
     def weight_features(self, global_params: Tree,
                         buckets: List[CohortBucket],

@@ -16,8 +16,11 @@
 
 All backends train on the same shuffles, batch boundaries and FedAvg
 weights; results agree up to float reassociation, and the selection logs
-are identical.  ``sharded`` (the multi-GPU mesh) is not ported yet
-(ROADMAP.md, queue 1), nor the defended path's ``train_cohort_updates``.
+are identical.  For the defended path each also has
+``train_cohort_updates``: the same local training, returning the
+cohort's per-client flat deltas (``core/aggregation.UpdateBatch``)
+instead of their FedAvg.  ``sharded`` (the multi-GPU mesh) is not ported
+yet (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import torch
 from repro_torch import obs
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.adapters import ModelAdapter
+from repro_torch.core.aggregation import UpdateBatch, flat_delta
 from repro_torch.core.clustering import window_index_table
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.optim import apply_updates, fedprox_grad, sgd
@@ -112,6 +116,26 @@ class SequentialRuntime:
                              np.float64)
             return tree_weighted_sum(locals_, sizes / sizes.sum())
 
+    def train_cohort_updates(self, global_params: Tree, sel_idx: np.ndarray,
+                             history: np.ndarray) -> Optional[UpdateBatch]:
+        """One flat delta per winner, in ``sel_idx`` order, with the
+        size-weighted FedAvg weights (None for an empty cohort)."""
+        history = np.asarray(history)
+        sel_idx = drop_zero_size_winners(sel_idx, self.clients)
+        if sel_idx.size == 0:
+            return None
+        with obs.span("cohort/train", defended=True):
+            rows = [flat_delta(self.train_client(global_params, int(i),
+                                                 int(history[int(i)])),
+                               global_params)
+                    for i in sel_idx]
+            sizes = np.array([self.clients[int(i)].size for i in sel_idx],
+                             np.float64)
+            return UpdateBatch(deltas=torch.stack(rows),
+                               weights=(sizes / sizes.sum()).astype(
+                                   np.float32),
+                               client_idx=np.asarray(sel_idx, np.int32))
+
     def cluster_features(self, global_params, key, feature_kind):
         return None   # the per-client loop in clustering.cluster_clients
 
@@ -152,6 +176,22 @@ class VectorizedRuntime(SequentialRuntime):
         with obs.span("cohort/train"):
             return self.engine.train_cohort(global_params,
                                             self._pack(sel_idx, history))
+
+    def train_cohort_updates(self, global_params: Tree, sel_idx: np.ndarray,
+                             history: np.ndarray) -> Optional[UpdateBatch]:
+        """Per-bucket flat deltas, concatenated in bucket order (padding
+        rows ride along with id -1 and weight 0)."""
+        buckets = self._pack(sel_idx, history)
+        if not buckets:
+            return None
+        with obs.span("cohort/train", defended=True):
+            return UpdateBatch(
+                deltas=torch.cat([self.engine.train_bucket_updates(
+                    global_params, b) for b in buckets]),
+                weights=np.concatenate(
+                    [np.asarray(b.weights, np.float32) for b in buckets]),
+                client_idx=np.concatenate(
+                    [np.asarray(b.client_idx, np.int32) for b in buckets]))
 
     def cluster_features(self, global_params: Tree, key,
                          feature_kind: str) -> torch.Tensor:
@@ -203,11 +243,17 @@ class DeviceRuntime(VectorizedRuntime):
 
     def warmup(self, global_params: Tree) -> None:
         """One fully masked invocation per (class, tier), so the round
-        loop meets no new shape.  Idempotent."""
+        loop meets no new shape: of the updates program when
+        ``cfg.defended`` (the defended rounds call it instead of the
+        fused one).  Idempotent."""
         if self._warmed:
             return
         for b in self.store.warmup_batches():
-            self.engine.train_class(global_params, *self._put_batch(b))
+            staged = self._put_batch(b)
+            if self.cfg.defended:
+                self.engine.train_class_updates(global_params, *staged[:5])
+            else:
+                self.engine.train_class(global_params, *staged)
         self._warmed = True
 
     def _put_batch(self, b: ClassBatch):
@@ -231,6 +277,24 @@ class DeviceRuntime(VectorizedRuntime):
                 agg = part if agg is None else {k: agg[k] + part[k]
                                                 for k in agg}
             return agg
+
+    def train_cohort_updates(self, global_params: Tree, sel_idx: np.ndarray,
+                             history: np.ndarray) -> Optional[UpdateBatch]:
+        """Per-class flat deltas, concatenated in batch order (padding
+        rows ride along with id -1 and weight 0)."""
+        with obs.span("cohort/assemble"):
+            batches = self.store.assemble(sel_idx, np.asarray(history))
+        if not batches:
+            return None
+        with obs.span("cohort/train", defended=True):
+            return UpdateBatch(
+                deltas=torch.cat([self.engine.train_class_updates(
+                    global_params, *self._put_batch(b)[:5])
+                    for b in batches]),
+                weights=np.concatenate(
+                    [np.asarray(b.weights, np.float32) for b in batches]),
+                client_idx=np.concatenate(
+                    [np.asarray(b.client_idx, np.int32) for b in batches]))
 
 
 def make_runtime(cfg: FLConfig, adapter: ModelAdapter, x, y, clients,

@@ -413,3 +413,114 @@ def test_audited_dynamics_run_on_cuda_matches_cpu(cuda, runtime):
     assert s0 == s1 and o0 == o1
     for k in p0:
         assert float((p0[k] - p1[k]).abs().max()) < 1e-4, k
+
+
+# ----------------------------------------------------------------------
+# the Byzantine-tolerant path on the card
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("watchdog", ["off", "on"])
+@pytest.mark.parametrize("mode", ["static", "adaptive"])
+@pytest.mark.parametrize("defense", ["none", "clip", "trimmed", "median"])
+def test_screened_step_on_cuda_matches_cpu(cuda, defense, mode, watchdog):
+    """The screened step at the chip cells' shape (16 rows x 21,840) on
+    the card against the same step on the CPU over three chained rounds:
+    strikes (the quarantine and band verdicts) and report counts exact,
+    ``agg`` within 1e-5, and no host synchronisation inside the step."""
+    from repro_torch import rng
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core import aggregation as AGG
+
+    cfg = FLConfig(num_clients=32, defense=defense, defense_mode=mode,
+                   watchdog=watchdog, adversary_frac=0.3, attack="scale",
+                   attack_scale=4.0)
+    step = AGG.make_screened_step(cfg)
+    ds = {"cpu": AGG.init_defense_state(cfg, "cpu"),
+          "cuda": AGG.init_defense_state(cfg, cuda)}
+    for rnd in range(3):
+        g = np.random.default_rng(rnd)
+        d = (g.normal(size=(16, 21840))
+             * g.uniform(0.5, 1.5, (16, 1))).astype(np.float32)
+        valid = np.arange(16) < 12
+        d[~valid] = d[0]
+        d[3] = np.nan
+        w = np.where(valid, g.uniform(0.1, 1.0, 16), 0.0).astype(np.float32)
+        w /= w.sum()
+        adv = valid & (np.arange(16) % 4 == 1)
+        ids = np.where(valid, g.permutation(32)[:16], -1).astype(np.int32)
+        strikes = g.uniform(0.0, 1.0, 32).astype(np.float32)
+        out = {}
+        for name, dev in (("cpu", "cpu"), ("cuda", cuda)):
+            args = [torch.tensor(a, device=dev)
+                    for a in (d, w, valid, adv, ids, strikes)]
+            rnd_t = torch.tensor(rnd, dtype=torch.int32, device=dev)
+            torch.cuda.synchronize()
+            with torch.cuda.device(cuda):
+                torch.cuda.set_sync_debug_mode(
+                    "error" if name == "cuda" else "default")
+                try:
+                    agg, st, ds[name], rep = step(*args, ds[name], rnd_t,
+                                                  rng.PRNGKey(rnd))
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            out[name] = (agg.cpu(), st.cpu(),
+                         {k: float(v) for k, v in rep.items()})
+        (a0, s0, r0), (a1, s1, r1) = out["cpu"], out["cuda"]
+        assert torch.equal(s0, s1)
+        for k in ("num_quarantined", "num_screened", "num_survivors"):
+            assert r0[k] == r1[k], k
+        if defense == "none":
+            assert torch.isnan(a0).all() and torch.isnan(a1).all()
+        else:
+            assert float((a0 - a1).abs().max()) < 1e-5
+
+
+def _robust_run(cuda, runtime, dev, audit, **kw):
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core.adapters import cnn_adapter
+    from repro_torch.core.server import FederatedServer
+    from repro_torch.data.partition import partition_clients
+    from repro_torch.data.synthetic import make_image_dataset
+
+    cfg = FLConfig(**dict(RUNTIME_KW, rounds=4), runtime=runtime, **kw)
+    train, test = make_image_dataset("mnist", n_train=700, n_test=120,
+                                     seed=3, device="cpu")
+    clients = partition_clients(train.y, cfg, seed=3)
+    srv = FederatedServer(cfg, cnn_adapter("mnist", dev), train.x, train.y,
+                          clients, {"x": test.x[:64], "y": test.y[:64]},
+                          device=dev)
+    logs = srv.run(audit_sync=audit, audit_warm_rounds=1)
+    return ([l.selected.tolist() for l in logs], srv.state.strikes.cpu(),
+            dict(srv.defense_totals),
+            {k: v.cpu() for k, v in srv.params.items()})
+
+
+SELFHEAL_KW = dict(adversary_frac=0.3, attack="sub_clip", defense="clip",
+                   defense_mode="adaptive", reputation_mode="price",
+                   watchdog="on")
+
+
+def test_defended_runtimes_agree_on_cuda(cuda):
+    """The three runtimes' self-healing runs on the card at N = 10 select
+    the same clients, strike the same clients and screen the same rows,
+    params within 1e-4 of the sequential run's."""
+    runs = {rt: _robust_run(cuda, rt, cuda, False, **SELFHEAL_KW)
+            for rt in ("sequential", "vectorized", "device")}
+    sel, strikes, totals, params = runs["sequential"]
+    assert totals["screened"] > 0
+    for rt in ("vectorized", "device"):
+        s, st, tot, p = runs[rt]
+        assert s == sel and torch.equal(st, strikes) and tot == totals, rt
+        for k in params:
+            assert float((params[k] - p[k]).abs().max()) < 1e-4, (rt, k)
+
+
+@pytest.mark.parametrize("runtime", ["vectorized", "device"])
+def test_defended_warm_loop_has_no_host_sync_and_matches_cpu(cuda, runtime):
+    """The defended warm rounds under ``set_sync_debug_mode("error")``
+    (``audit_sync``) on the card select and strike as the CPU run."""
+    a = _robust_run(cuda, runtime, "cpu", False, **SELFHEAL_KW)
+    b = _robust_run(cuda, runtime, cuda, True, **SELFHEAL_KW)
+    assert a[0] == b[0] and torch.equal(a[1], b[1]) and a[2] == b[2]
+    for k in a[3]:
+        assert float((a[3][k] - b[3][k]).abs().max()) < 1e-4, k

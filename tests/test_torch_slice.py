@@ -166,14 +166,39 @@ def test_cli_defaults_match_jax_cli(monkeypatch):
                                    rtol=1e-5, atol=1e-5, err_msg=f)
 
 
+SMALL = ["--clients", "12", "--clusters", "3", "--rounds", "1", "--pool",
+         "1200", "--quiet"]
+
+
 @pytest.mark.parametrize("flag", [["--runtime", "sharded"],
-                                  ["--defense-mode", "adaptive"],
-                                  ["--defense", "clip"],
-                                  ["--watchdog", "on"],
                                   ["--mode", "transformer"],
-                                  ["--reputation-mode", "price"],
-                                  ["--adversary-frac", "0.1"]])
+                                  ["--cohort-devices", "2"]])
 def test_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError):
-        TRAIN.main(["--device", "cpu", "--clients", "12", "--clusters", "3",
-                    "--rounds", "1", "--pool", "1200", "--quiet", *flag])
+        TRAIN.main(["--device", "cpu", *SMALL, *flag])
+
+
+def _summary_lines(text):
+    return [l for l in text.splitlines()
+            if l.startswith(("defense ", "watchdog: "))]
+
+
+# flags that raised before the Byzantine path was ported: each now runs
+# for a round and closes with the JAX CLI's defense / watchdog lines
+@pytest.mark.parametrize("flag", [["--defense-mode", "adaptive"],
+                                  ["--defense", "clip"],
+                                  ["--watchdog", "on"],
+                                  ["--reputation-mode", "price"],
+                                  ["--adversary-frac", "0.1"]])
+def test_byzantine_flags_match_jax_cli_summary(flag, monkeypatch, capsys):
+    import repro.launch.train as JTRAIN
+    monkeypatch.setattr("sys.argv", ["train", *SMALL, *flag])
+    JTRAIN.main()
+    want = _summary_lines(capsys.readouterr().out)
+    out = TRAIN.main(["--device", "cpu", *SMALL, *flag])
+    got = _summary_lines(capsys.readouterr().out)
+    assert got == want
+    assert len(out["test_acc"]) == 1
+    assert ("defense" in out) == any(l.startswith("defense ") for l in want)
+    if flag[0] in ("--defense", "--watchdog"):
+        assert got
