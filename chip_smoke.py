@@ -118,6 +118,27 @@
    ``attn_impl="naive"`` path; teacher-forced ``decode_step`` over 1,536
    tokens held against the kernel prefill; and ``serve`` of 4 x 32
    tokens, whose ids must be the argmax of the logits that made them.
+13. Transformer path (run before the selection path): ``--mode
+   transformer`` at the CLI defaults (each arch's smoke config, 20 FL
+   clients, 5 clusters, seed 0): qwen2-0.5b for 30 rounds on
+   ``sequential``, ``vectorized`` and ``device``, and qwen1.5-4b,
+   qwen1.5-32b, starcoder2-3b and phi-3-vision-4.2b for 3 rounds on
+   ``sequential``, counts reset before and read after each run (26
+   ``lloyd_step`` launches), each held to the JAX package's stage-1
+   labels and winners in every round and to its test loss, accuracy and
+   energy std within TF_LOSS_TOL / TF_ACC_TOL (TRANSFORMER_REFERENCE,
+   written by tools/record_transformer_reference.py); stage-1 seconds,
+   seconds per round and the ``cohort/train`` share per run.
+14. Full-width train step (after the serving path): ``make_train_step``
+   on qwen2-0.5b's full CONFIG (24 layers, bf16, remat, chunked
+   attention) at B 2, S 4,096 for 3 SGD steps at lr 1e-3 on one seeded
+   batch: the loss finite and falling; s a step, tokens/s,
+   ``max_memory_allocated`` and the device-busy share of one profiled
+   step.  Autograd through ``attn_impl="pallas"`` must raise.  Then
+   ``chunked_attention``'s backward at (1, 4,096, 14, 64), causal, fp32,
+   against autograd through the naive attention (ATTN_BWD_TOL), and
+   ``chunked_softmax_xent``'s value and grads at (2, 4,096, 151,936)
+   against the direct fp32 log-softmax (XENT_VALUE_TOL, XENT_GRAD_TOL).
 
 It prints one JSON line with the kernels' numbers and, last, the JSON
 status line.  ``--profile`` adds a torch.profiler pass before them:
@@ -165,6 +186,8 @@ KERNEL_SHAPES = (
     ("fleet", 100_000, 256, 10, 4, torch.float32, 3),
     # stage 1 of the robust path: 32 clients, 4 clusters
     ("robust", 32, 256, 4, 4, torch.float32, 4),
+    # stage 1 of --mode transformer: 20 clients, 5 clusters
+    ("transformer", 20, 256, 5, 4, torch.float32, 5),
 )
 MAIN_ARGS = ["--rounds", "3", "--quiet"]          # reference defaults else
 # The clients the JAX package (python -m repro.launch.train --mode paper
@@ -475,6 +498,33 @@ LOGITS_REL_TOL = 2e-2
 # sequential runtime's
 PARAMS_TOL = 1e-4
 BATCHED_RUNTIMES = ("vectorized", "device")
+# the transformer path: --mode transformer at the CLI defaults (each
+# arch's smoke config, 20 FL clients, 5 clusters) held to the JAX
+# package's runs (tools/record_transformer_reference.py): qwen2-0.5b for
+# 30 rounds on each runtime, the other dense archs for 3 on sequential
+TRANSFORMER_REFERENCE = ROOT / "tools" / "transformer_reference.json"
+TF_RUNTIMES = ("sequential", "vectorized", "device")
+# JAX's three runtimes pick the same clusters and winners in all 30
+# rounds, with test losses within 9.6e-7 of each other and accuracy and
+# energy std identical: the card is held to 1e-5 on loss and energy std
+# (ten times that spread) and to one scored token of the 64 x 31 on the
+# accuracy (an argmax may flip on a near tie of two logits that agree to
+# 1e-6)
+TF_LOSS_TOL = 1e-5
+TF_ACC_TOL = 1.0 / (64 * 31)
+# the full-width train step: qwen2-0.5b's CONFIG (24 layers, bf16,
+# remat, chunked attention) at train_4k's length, batch cut from 256 to
+# 2 for one card; 3 SGD steps on one fixed batch
+TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS, TRAIN_LR = 2, 4096, 3, 1e-3
+# chunked attention's backward against autograd through the naive
+# attention, both fp32: tests/test_kernels.py's bound for the JAX
+# package's own custom VJP against autodiff (rtol, atol)
+ATTN_BWD_TOL = (1e-3, 1e-4)
+# chunked_softmax_xent against the direct fp32 log-softmax at (2, 4,096,
+# 151,936): the loss within 1e-5 relative; each grad within 1e-4 of its
+# largest magnitude (the two differ in the order of fp32 sums of up to
+# 151,936 terms, about 2^-24 * sqrt(151,936) = 2.3e-5 relative)
+XENT_VALUE_TOL, XENT_GRAD_TOL = 1e-5, 1e-4
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1938,6 +1988,207 @@ def robust_path(OPS, obs, card) -> int:
     return launches
 
 
+def transformer_path(OPS, TRAIN, obs, servers) -> int:
+    """``--mode transformer`` at the CLI defaults on the card: qwen2-0.5b
+    for 30 rounds on each runtime and each other dense arch for 3 on
+    ``sequential``, counts reset before and read after each run (26
+    ``lloyd_step`` launches), held to the JAX package's labels, winners
+    and round metrics (TRANSFORMER_REFERENCE).  Returns the launches."""
+    ref = json.loads(TRANSFORMER_REFERENCE.read_text())
+    runs = [(arch, rt) for arch, by_rt in ref["runs"].items()
+            for rt in TF_RUNTIMES if rt in by_rt]
+    total = 0
+    for arch, runtime in runs:
+        want, rounds = ref["runs"][arch][runtime], ref["rounds"][arch]
+        reset_counts(OPS)
+        obs.SPANS.clear()
+        result = TRAIN.main(["--mode", "transformer", "--quiet", "--arch",
+                             arch, "--runtime", runtime, "--rounds",
+                             str(rounds)])
+        torch.cuda.synchronize()
+        launches = OPS.lloyd_step.launches
+        srv = servers[-1]
+        tag = f"transformer {arch} ({runtime})"
+        require(srv.runtime.name == runtime and srv.device.type == "cuda",
+                f"{tag}: ran {srv.runtime.name} on {srv.device}")
+        require(launches == 26, f"{tag}: stage 1 made {launches} "
+                "lloyd_step launches, expected 26")
+        require(OPS.kmeans_assign.launches == OPS.flash_attention.launches
+                == 0, f"{tag}: launched a kernel it does not use")
+        labels = obs.device_get(srv.state.clusters).tolist()
+        require(labels == want["clusters"], f"{tag}: stage-1 labels "
+                f"{labels}, the JAX package's {want['clusters']}")
+        require(result["selected"] == want["selected"],
+                f"{tag}: winners differ from the JAX package's ("
+                f"{first_diff(result['selected'], want['selected'])})")
+        errs = {}
+        for key, tol in (("test_loss", TF_LOSS_TOL),
+                         ("energy_std", TF_LOSS_TOL),
+                         ("test_acc", TF_ACC_TOL)):
+            errs[key] = max(abs(a - b) for a, b in zip(result[key],
+                                                       want[key]))
+            require(errs[key] <= tol, f"{tag}: {key} differs from the "
+                    f"JAX package's by {errs[key]} > {tol}")
+        stage1 = obs.SPANS["run/cluster"]
+        warmup = obs.SPANS.get("run/warmup", 0.0)
+        loop_s = result["wall_s"] - stage1 - warmup
+        print(f"{tag}: {rounds} rounds, lloyd_step launches={launches}, "
+              f"labels and winners as JAX's; max |d| test_loss="
+              f"{errs['test_loss']!r} energy_std={errs['energy_std']!r} "
+              f"test_acc={errs['test_acc']!r}; stage1_s={stage1!r} "
+              f"(features {obs.SPANS['cluster/features']!r}, project "
+              f"{obs.SPANS['cluster/project']!r}, kmeans "
+              f"{obs.SPANS['cluster/kmeans']!r}) warmup_s={warmup!r} "
+              f"s_per_round={loop_s / rounds!r} cohort_train_share="
+              f"{obs.SPANS['cohort/train'] / loop_s!r} final test_loss="
+              f"{result['test_loss'][-1]!r} test_acc="
+              f"{result['test_acc'][-1]!r}", flush=True)
+        total += launches
+    return total
+
+
+def max_err_vs(got, want, rtol, atol):
+    """(max |got - want|, max of |got - want| / (atol + rtol |want|)):
+    the second is at most 1 where every element lies within the
+    bound."""
+    d = (got.float() - want.float()).abs()
+    return (float(d.max()),
+            float((d / (atol + rtol * want.float().abs())).max()))
+
+
+def train_step_path(cuda, card) -> None:
+    """qwen2-0.5b's full CONFIG (24 layers, d_model 896, vocab 151,936,
+    bf16, remat, chunked attention) trained by ``make_train_step`` for
+    TRAIN_STEPS SGD steps on one fixed (TRAIN_BATCH, TRAIN_LEN) batch:
+    the loss finite every step and falling; s a step, tokens/s, peak
+    memory and the device-busy share of one more step.  Then the
+    refusal of autograd through the flash kernel on the card, and the
+    two hand-written backwards at this width against their plain
+    autograd versions."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import rng
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as MD
+
+    cfg = get_config(ARCH)
+    require(cfg.remat and cfg.attn_impl == "chunked"
+            and cfg.dtype == "bfloat16", f"{cfg.name}: not the full config")
+    params = MD.init_params(cfg, rng.PRNGKey(0), cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_LEN + 1),
+                         device=cuda, generator=g)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "mask": torch.ones((TRAIN_BATCH, TRAIN_LEN), device=cuda)}
+    step, opt_init = make_train_step(cfg, lr=TRAIN_LR)
+    opt = opt_init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        params, opt, loss = step(params, opt, batch)
+        losses.append(float(loss))                 # waits for the step
+        secs.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated()
+    require(all(math.isfinite(v) for v in losses),
+            f"train step: non-finite loss {losses}")
+    require(losses[-1] < losses[0],
+            f"train step: loss did not fall over {TRAIN_STEPS} steps: "
+            f"{losses}")
+    s_step = statistics.median(secs[1:])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        params, opt, loss = step(params, opt, batch)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    rows = _kernel_rows(prof)
+    busy = sum(e.self_device_time_total for e in rows) / 1e6
+    n_params = sum(v.numel() for v in MD.flatten_params(params).values())
+    print(f"train step: {cfg.name} full width ({cfg.num_layers} layers, "
+          f"{n_params} params, {cfg.dtype}, remat, {cfg.attn_impl}) "
+          f"B={TRAIN_BATCH} S={TRAIN_LEN} lr={TRAIN_LR}: losses={losses} "
+          f"step_s={secs} s_per_step={s_step!r} (median of the last "
+          f"{TRAIN_STEPS - 1}) tokens_per_s="
+          f"{TRAIN_BATCH * TRAIN_LEN / s_step!r} max_memory_allocated="
+          f"{peak} B; profiled step: wall_s={wall!r} device_busy_s="
+          f"{busy!r} busy_share={busy / wall!r} (of the profiled wall, "
+          f"which the profiler's host work stretches; of an unprofiled "
+          f"step: {busy / s_step!r}) kernel_launches="
+          f"{sum(e.count for e in rows)} [{card}]", flush=True)
+    for e in rows[:8]:
+        print(f"  {e.key[:60]} count={e.count} "
+              f"device_ms={e.self_device_time_total / 1e3!r}", flush=True)
+
+    # ---- no backward through the flash kernel, on the card too --------
+    flat = {k: v.detach().requires_grad_()
+            for k, v in MD.flatten_params(params).items()}
+    one = {k: v[:1] for k, v in batch.items()}
+    try:
+        MD.loss_fn(cfg.replace(attn_impl="pallas"), MD.nested_params(flat),
+                   one)
+    except NotImplementedError as e:
+        print(f"train step, attn_impl='pallas': raises "
+              f"NotImplementedError ({e})", flush=True)
+    else:
+        raise RuntimeError("chip_smoke check failed: autograd through "
+                           "the flash kernel did not raise")
+    del params, opt, flat, loss
+    torch.cuda.empty_cache()
+
+    # ---- chunked attention's backward at one layer's width ------------
+    h, hd = cfg.num_heads, cfg.resolved_head_dim
+    q, k, v, dout = (torch.randn(1, TRAIN_LEN, h, hd, device=cuda,
+                                 generator=g) for _ in range(4))
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(L.chunked_attention(*ins, causal=True),
+                              ins, dout)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(L.naive_attention(*ins, causal=True), ins,
+                               dout)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        err, share = max_err_vs(a, b, *ATTN_BWD_TOL)
+        print(f"chunked_attention backward {name} (1, {TRAIN_LEN}, {h}, "
+              f"{hd}) causal fp32 vs autograd through naive: "
+              f"max_abs_err={err!r} share_of_bound={share!r} (rtol, atol "
+              f"{ATTN_BWD_TOL})", flush=True)
+        require(share <= 1.0, f"chunked_attention {name}: beyond "
+                f"{ATTN_BWD_TOL}")
+    del got, want, ins
+
+    # ---- chunked_softmax_xent at the full vocab ------------------------
+    d, vocab = cfg.d_model, cfg.vocab_size
+    x = torch.randn(TRAIN_BATCH, TRAIN_LEN, d, device=cuda, generator=g)
+    w = torch.randn(d, vocab, device=cuda, generator=g) / math.sqrt(d)
+    lab = batch["labels"]
+    xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+    val = L.chunked_softmax_xent(None, xs, ws, lab, batch["mask"])
+    got = torch.autograd.grad(val, (xs, ws))
+    xd, wd = x.clone().requires_grad_(), w.clone().requires_grad_()
+    logp = torch.log_softmax(xd @ wd, dim=-1)
+    direct = -logp.gather(-1, lab[..., None])[..., 0].mean()
+    want = torch.autograd.grad(direct, (xd, wd))
+    del logp
+    val, direct = float(val.detach()), float(direct.detach())
+    rel = abs(val - direct) / abs(direct)
+    print(f"chunked_softmax_xent ({TRAIN_BATCH}, {TRAIN_LEN}, {vocab}) "
+          f"fp32 vs the direct log-softmax: loss {val!r} vs {direct!r}, "
+          f"rel_err={rel!r} (tol {XENT_VALUE_TOL})", flush=True)
+    require(rel <= XENT_VALUE_TOL, f"xent value: {rel} > {XENT_VALUE_TOL}")
+    for name, a, b in zip(("dx", "dw"), got, want):
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        print(f"chunked_softmax_xent {name}: max_abs_err={err!r} "
+              f"max|want|={scale!r} rel_to_max={err / scale!r} (tol "
+              f"{XENT_GRAD_TOL})", flush=True)
+        require(err <= XENT_GRAD_TOL * scale,
+                f"xent {name}: {err} > {XENT_GRAD_TOL} x {scale}")
+
+
 def toolkit(BUILD, name: str) -> str:
     """A program of the CUDA toolkit whose nvcc builds the kernels."""
     tool = Path(BUILD._nvcc()).parent / name
@@ -2143,6 +2394,10 @@ def main() -> int:
     phase("robust path", t0)
     robust_launches = robust_path(OPS, obs, card)
 
+    # ---- transformer path -----------------------------------------------
+    phase("transformer path", t0)
+    tf_launches = transformer_path(OPS, TRAIN, obs, servers)
+
     # ---- selection path -------------------------------------------------
     phase("selection path", t0)
     selection_path(OPS, TRAIN, cuda)
@@ -2150,6 +2405,10 @@ def main() -> int:
     # ---- serving path --------------------------------------------------
     phase("serving path", t0)
     flash_launches = serving_path(OPS, cuda)
+
+    # ---- full-width train step -------------------------------------------
+    phase("full-width train step", t0)
+    train_step_path(cuda, card)
 
     if "--profile" in sys.argv[1:]:
         phase("profile", t0)
@@ -2167,13 +2426,14 @@ def main() -> int:
                 "bound_by": m["bound_by"], "library_ms": library_ms}
 
     print(f"lloyd_step launches by path: dynamics {dyn_launches} (its "
-          f"churn-0.1 run), robust {robust_launches} (26 a run); the "
-          f"kernels line's launches is their total, "
-          f"{dyn_launches + robust_launches}", flush=True)
+          f"churn-0.1 run), robust {robust_launches} (26 a run), "
+          f"transformer {tf_launches} (26 a run); the kernels line's "
+          f"launches is their total, "
+          f"{dyn_launches + robust_launches + tf_launches}", flush=True)
     print(json.dumps({"kernels": [
         row("lloyd_step", "src/repro_torch/csrc/kmeans.cu",
             "src/repro/kernels/kmeans.py:144",
-            dyn_launches + robust_launches,
+            dyn_launches + robust_launches + tf_launches,
             shapes["main"], None),
         row("kmeans_assign", "src/repro_torch/csrc/kmeans.cu",
             "src/repro/kernels/kmeans.py:109", assign_launches,

@@ -1,4 +1,6 @@
-"""Synthetic image datasets (offline: no MNIST download).
+"""Synthetic datasets (offline: no MNIST download): images for the
+paper's CNNs and topic-conditional token sequences for transformer FL
+(:func:`make_token_dataset`).
 
 Class-conditional image distributions with the paper's tensor shapes:
 
@@ -84,3 +86,23 @@ def make_image_dataset(name: str, n_train: int = 12_000, n_test: int = 2_000,
     xtr, ytr = gen(rng.fold_in(kn1, 0), n_train)
     xte, yte = gen(rng.fold_in(kn2, 1), n_test)
     return Dataset(xtr, ytr, nc), Dataset(xte, yte, nc)
+
+
+def make_token_dataset(num_topics: int = 10, vocab: int = 256,
+                       seq_len: int = 64, n: int = 4_000, seed: int = 0):
+    """Topic-conditional token sequences (for transformer FL examples):
+    each topic is a Zipf distribution over a topic-specific permutation of
+    the vocabulary; 'labels' = topic ids (the non-IID partition key).
+    Numpy throughout, as in the JAX package, so the arrays are its own
+    bit for bit; the server places them on its device."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab + 1)
+    zipf = (1.0 / ranks) / (1.0 / ranks).sum()
+    perms = np.stack([rng.permutation(vocab) for _ in range(num_topics)])
+    topics = rng.integers(0, num_topics, n)
+    toks = np.empty((n, seq_len), np.int32)
+    for t in range(num_topics):
+        m = topics == t
+        draw = rng.choice(vocab, size=(int(m.sum()), seq_len), p=zipf)
+        toks[m] = perms[t][draw]
+    return toks, topics.astype(np.int32)

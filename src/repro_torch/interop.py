@@ -4,7 +4,8 @@ CNN parameter dict keeps ``c1_w`` (HWIO), ``f1_w`` (in, out), ... and
 every float is float32 (JAX runs with x64 off).  A transformer's tree
 keeps its nesting: ``tok_embed``, ``blocks`` (a tuple with one dict per
 cycle position, each leaf with a leading group axis), ``final_norm`` and
-an optional ``lm_head``, in the config's dtype."""
+an optional ``lm_head``, in the config's dtype; the FL plane holds it in
+its flat view (``models.model.flatten_params``)."""
 from __future__ import annotations
 
 from typing import Any, Dict, Mapping
@@ -15,6 +16,7 @@ import torch
 from repro_torch.core.selection import SelectionState
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import torch_dtype
+from repro_torch.models.model import flatten_params, nested_params
 
 
 def params_from_numpy(tree: Mapping[str, np.ndarray],
@@ -74,3 +76,16 @@ def model_params_to_numpy(tree: Any) -> Any:
     if isinstance(tree, (tuple, list)):
         return tuple(model_params_to_numpy(v) for v in tree)
     return tree.detach().float().cpu().numpy()
+
+
+def flat_params_from_numpy(tree: Any, cfg, device="cuda"
+                           ) -> Dict[str, torch.Tensor]:
+    """A JAX transformer parameter tree (numpy leaves) -> the flat view
+    the port's ``transformer_adapter`` trains."""
+    return flatten_params(model_params_from_numpy(tree, cfg, device))
+
+
+def flat_params_to_numpy(flat: Mapping[str, torch.Tensor]) -> Any:
+    """The adapter's flat view -> the JAX package's tree with numpy
+    float32 leaves (``jax.tree.map(np.asarray, ...)``'s nesting)."""
+    return model_params_to_numpy(nested_params(dict(flat)))

@@ -121,7 +121,9 @@ def _pad_head_dim(t: torch.Tensor) -> torch.Tensor:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """Forward attention: q (B, Sq, H, hd), k, v (B, Sk, H, hd) with K/V
-    already expanded to H heads -> (B, Sq, H, hd) in q's type.
+    already expanded to H heads -> (B, Sq, H, hd) in q's type.  There is
+    no backward: under autograd, with an input that requires grad, it
+    raises ``NotImplementedError``.
 
     The kernel takes head dims that are multiples of 8; another hd under
     256 is zero-padded to the next one (zero columns add nothing to q.k,
@@ -129,6 +131,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     true hd."""
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        # as jax.grad through the Pallas kernel fails: neither has a
+        # backward, and no other attention stands in for it
+        raise NotImplementedError(
+            "flash_attention (attn_impl='pallas') has no backward; train "
+            "with attn_impl='chunked' or 'naive'")
     if q.device.type == "cpu":
         return _flash_attention_torch(q, k, v, causal=causal, window=window)
     hd = q.shape[-1]

@@ -1,5 +1,5 @@
-"""FL training entry point of the port: ``--mode paper`` and ``--mode
-selection``.
+"""FL training entry point of the port: ``--mode paper``, ``--mode
+transformer`` and ``--mode selection``.
 
   * ``--mode paper``: the paper-faithful simulation — N edge clients with
     CNNs on a synthetic non-IID/imbalanced image dataset, clustering and
@@ -8,6 +8,13 @@ selection``.
     FedAvg/FedProx aggregation and energy accounting, on the
     ``sequential``, ``vectorized`` or ``device`` runtime (``sharded``
     raises ``NotImplementedError``).
+  * ``--mode transformer``: the same FL plane over a registry LM
+    (``--arch``, at its smoke config, as the JAX CLI trains it):
+    next-token training on topic-conditional token sequences
+    (``make_token_dataset``), partitioned non-IID by topic.  The dense
+    archs run (qwen2-0.5b, qwen1.5-4b, qwen1.5-32b, starcoder2-3b,
+    phi-3-vision-4.2b without its image prefix); the others raise
+    ``NotImplementedError``.
   * ``--mode selection``: the selection-only simulation — the per-round
     auction and energy dynamics without training, over a synthetic fleet
     (``core/rounds.simulate_rounds``), at up to a million clients.  It
@@ -35,6 +42,7 @@ repro.launch.train``), plus ``--device``:
   python -m repro_torch.launch.train --mode paper --device cpu
   python -m repro_torch.launch.train --mode paper --runtime device
   python -m repro_torch.launch.train --mode paper --scheme random
+  python -m repro_torch.launch.train --mode transformer --arch starcoder2-3b
   python -m repro_torch.launch.train --mode selection --clients 1000000
   python -m repro_torch.launch.train --mode paper --runtime vectorized \
       --churn 0.1 --deadline 1.5 --aggregation buffered \
@@ -46,8 +54,8 @@ repro.launch.train``), plus ``--device``:
 The run is on the GPU unless ``--device cpu`` is given; ``cuda`` with no
 GPU raises.  TF32 is switched off for matmuls and cuDNN, so float32 stays
 float32.  A flag whose feature is not ported yet is still parsed, and a
-non-default value raises ``NotImplementedError`` (ROADMAP.md, queue 1),
-as does ``--mode transformer``.
+non-default value raises ``NotImplementedError`` (ROADMAP.md, queue 1:
+the sharded runtime and ``--cohort-devices``).
 """
 from __future__ import annotations
 
@@ -63,15 +71,15 @@ import torch
 from repro_torch import obs, rng
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import rounds as RND
-from repro_torch.core.adapters import cnn_adapter
+from repro_torch.core.adapters import cnn_adapter, transformer_adapter
 from repro_torch.core.server import FederatedServer
 from repro_torch.data.partition import partition_clients
-from repro_torch.data.synthetic import make_image_dataset
+from repro_torch.data.synthetic import make_image_dataset, make_token_dataset
 from repro_torch.device import resolve_device
 from repro_torch.sim import dynamics as DYN
 
 # flags of the JAX CLI whose features the port does not have yet
-UNPORTED_FLAGS = ("arch", "cohort_devices")
+UNPORTED_FLAGS = ("cohort_devices",)
 
 
 def set_float32_precision() -> None:
@@ -159,6 +167,49 @@ def run_paper(args, device: torch.device, assign_fn=None) -> dict:
             "snapshots": srv.watchdog_totals["snapshots"],
         }
     return out
+
+
+def run_transformer(args, device: torch.device) -> dict:
+    """FL over ``--arch``'s smoke config: the JAX CLI's FLConfig (a fifth
+    of ``--clients``, at least 10; 5 clusters; a fifth selected), token
+    data and 64-sequence test set."""
+    from repro_torch.configs.registry import get_smoke_config
+    mcfg = get_smoke_config(args.arch)
+    adapter = transformer_adapter(mcfg, device)     # refuses unported archs
+    cfg = FLConfig(
+        num_clients=max(10, args.clients // 5), num_clusters=5,
+        select_ratio=0.2, rounds=args.rounds, lr=args.lr,
+        non_iid_level=args.nu, scheme=args.scheme, num_classes=10,
+        scheme_select=args.scheme_select,
+        fedcs_deadline=args.fedcs_deadline,
+        sample_window=8, cluster_resamples=2, runtime=args.runtime,
+        cohort_mesh_devices=args.cohort_devices,
+        eval_every=args.eval_every, seed=args.seed,
+        churn=args.churn, deadline=args.deadline,
+        straggler_profile=args.straggler_profile,
+        aggregation=args.aggregation, buffer_goal=args.buffer_goal,
+        buffer_timeout=args.buffer_timeout)
+    toks, topics = make_token_dataset(
+        num_topics=10, vocab=mcfg.vocab_size, seq_len=32,
+        n=cfg.num_clients * 40, seed=args.seed)
+    clients = partition_clients(topics, cfg, seed=args.seed)
+    test_n = min(64, len(toks))
+    srv = FederatedServer(cfg, adapter, toks, topics, clients,
+                          {"x": toks[:test_n], "y": topics[:test_n]},
+                          device=device)
+    t0 = time.time()
+    logs = srv.run(verbose=not args.quiet, audit_sync=args.audit_sync)
+    return {
+        "mode": "transformer", "arch": args.arch, "scheme": args.scheme,
+        "scheme_select": args.scheme_select, "runtime": args.runtime,
+        "device": str(device),
+        "rounds": [l.round for l in logs],
+        "test_loss": [l.test_loss for l in logs],
+        "test_acc": [l.test_acc for l in logs],
+        "energy_std": [l.energy_std for l in logs],
+        "selected": [l.selected.tolist() for l in logs],
+        "wall_s": time.time() - t0,
+    }
 
 
 def log_summaries(result: dict) -> None:
@@ -326,23 +377,24 @@ def main(argv: Optional[List[str]] = None, *, assign_fn=None) -> dict:
     ``assign_fn`` does."""
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.mode == "transformer":
-        raise NotImplementedError(
-            "--mode transformer is not ported yet (ROADMAP.md, queue 1)")
     for dest in UNPORTED_FLAGS:
         if getattr(args, dest) != ap.get_default(dest):
             raise NotImplementedError(
                 f"--{dest.replace('_', '-')} is not ported yet "
-                "(ROADMAP.md, queue 1); leave it at its default")
+                "(ROADMAP.md, queue 1: the sharded runtime and "
+                "--cohort-devices); leave it at its default")
     set_float32_precision()
     device = resolve_device(args.device)
     attached = obs.OBS.sinks
     obs.configure(jsonl=args.log_jsonl, csv=args.log_csv, quiet=args.quiet)
     try:
         with obs.maybe_profile(args.profile_dir):
-            result = (run_selection(args, device)
-                      if args.mode == "selection"
-                      else run_paper(args, device, assign_fn))
+            if args.mode == "selection":
+                result = run_selection(args, device)
+            elif args.mode == "transformer":
+                result = run_transformer(args, device)
+            else:
+                result = run_paper(args, device, assign_fn)
         if args.out:
             os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
             with open(args.out, "w") as f:

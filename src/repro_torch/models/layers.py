@@ -1,5 +1,5 @@
-"""Shared building blocks of the transformer (the serving subset of
-``repro.models.layers``).
+"""Shared building blocks of the transformer (``repro.models.layers``
+without the cross-attention of the encoder-decoder models).
 
 Parameters are plain nested dicts of tensors with the JAX package's
 names and layouts (a dense weight is (in, out)).  Every ``init_*`` draws
@@ -8,14 +8,24 @@ gives the JAX weights.
 
 Attention is implemented three ways, as in the JAX package:
   * ``naive``   — materialise the (S, S) score matrix (small shapes, oracle);
-  * ``chunked`` — blockwise attention with an online softmax in torch
-    (forward only: the custom backward is training, not ported yet);
+  * ``chunked`` — blockwise attention with an online softmax in torch,
+    with the JAX package's hand-written flash backward (a
+    ``torch.autograd.Function`` that recomputes each block's
+    probabilities from the saved log-sum-exp, so training holds O(S·hd)
+    per head, not the (S, S) scores);
   * ``pallas``  — the hand-written CUDA kernel, through
     ``repro_torch.kernels.ops.flash_attention`` (its plain version on the
     CPU).  The name is the JAX package's, where it selects the Pallas TPU
-    kernel.
+    kernel.  The kernel has no backward, in either package: autograd
+    through it raises.
 :func:`attention_train` keeps the JAX dispatch: ``naive`` for S <= 1024
 whatever the setting.
+
+:func:`chunked_softmax_xent` is the LM loss with the vocab projection
+fused per sequence chunk; its backward recomputes each chunk's logits,
+so the (B, S, V) logits are never held.  Both ``autograd.Function``
+classes carry a generated vmap rule, so the batched FL runtimes'
+``torch.func.vmap(torch.func.grad(loss))`` passes through them.
 
 The decode KV cache is updated in place (the JAX package returns a new
 cache that XLA writes in place under buffer donation); the functions
@@ -201,45 +211,161 @@ def naive_attention(q, k, v, *, causal: bool, window: int = 0
     return KREF.flash_attention_ref(q, k, v, causal=causal, window=window)
 
 
-def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
-                      q_block: int = 512, kv_block: int = 1024
-                      ) -> torch.Tensor:
-    """Blockwise attention with an online softmax, forward only: the JAX
-    package's ``_flash_fwd_impl`` (masked probabilities zeroed, fp32 m, l
-    and acc).  q, k, v: (B, S, H, hd) (kv pre-expanded to H heads).
-    Returns the same layout."""
-    B, Sq, H, hd = q.shape
-    Sk = k.shape[1]
-    bq, bk = min(q_block, Sq), min(kv_block, Sk)
+# ---------------- flash attention with a hand-written backward -----------
+# Layout inside is (B, H, S, hd).  The blocks of a (q block, kv block)
+# pair that no query of the pair may see are skipped: there the online
+# softmax step is the identity (p = 0, corr = 1) and the backward adds
+# zeros, so skipping changes no value and saves the masked half of a
+# causal pass.
+
+def _pad_to(x, blk):
+    """Zero-pad axis 2 (S) to a multiple of ``blk``."""
+    pad = (-x.shape[2]) % blk
+    return Fn.pad(x, (0, 0, 0, pad)) if pad else x
+
+
+def _block_sees(q0, bq, k0, bk, *, causal, window, sk, q_offset) -> bool:
+    """Whether any query of rows [q0, q0 + bq) sees any key of
+    [k0, k0 + bk) (``_block_mask`` has a True)."""
+    qlo, qhi = q0 + q_offset, q0 + bq - 1 + q_offset
+    khi = min(k0 + bk, sk) - 1
+    if k0 >= sk or (causal and k0 > qhi):
+        return False
+    return not (window > 0 and khi <= qlo - window)
+
+
+def _block_mask(q0, bq, k0, bk, *, causal, window, sk, q_offset, device):
+    """(bq, bk) bool: the JAX package's ``_block_mask`` for the block
+    starting at query row ``q0`` and key ``k0`` (padding keys >= sk
+    masked)."""
+    qpos = torch.arange(q0, q0 + bq, device=device)[:, None] + q_offset
+    kpos = torch.arange(k0, k0 + bk, device=device)[None, :]
+    m = kpos < sk
+    if causal:
+        m = m & (kpos <= qpos)
+    if window > 0:
+        m = m & (kpos > qpos - window)
+    return m
+
+
+def _flash_fwd(q, k, v, causal, window, bq, bk, q_offset):
+    """q, k, v: (B, H, S, hd).  Returns (out (B, H, Sq, hd) in q's type,
+    lse (B, H, Sq) float32), as ``_flash_fwd_impl``: fp32 m, l and acc,
+    masked probabilities zeroed, lse = m + log(l), 1e30 where l == 0."""
+    B, H, Sq, hd = q.shape
+    Sk = k.shape[2]
     scale = 1.0 / math.sqrt(hd)
-    qt = q.transpose(1, 2).float()                    # (B, H, Sq, hd)
-    kt = k.transpose(1, 2).float()
-    vt = v.transpose(1, 2).float()
-    outs = []
-    for q0 in range(0, Sq, bq):
-        qb = qt[:, :, q0:q0 + bq]
-        n = qb.shape[2]
-        m = torch.full((B, H, n), -1e30, device=q.device)
-        l = torch.zeros((B, H, n), device=q.device)
-        acc = torch.zeros((B, H, n, hd), device=q.device)
-        for k0 in range(0, Sk, bk):
-            kb, vb = kt[:, :, k0:k0 + bk], vt[:, :, k0:k0 + bk]
-            s = torch.einsum("bhqd,bhkd->bhqk", qb, kb) * scale
-            msk = KREF.attention_mask(
-                torch.arange(q0, q0 + n, device=q.device),
-                torch.arange(k0, k0 + kb.shape[2], device=q.device),
-                causal=causal, window=window)
-            s = torch.where(msk, s, torch.full_like(s, -1e30))
+    qp, kp, vp = _pad_to(q, bq).float(), _pad_to(k, bk).float(), \
+        _pad_to(v, bk).float()
+    dev = q.device
+    geo = dict(causal=causal, window=window, sk=Sk, q_offset=q_offset)
+    outs, lses = [], []
+    for q0 in range(0, qp.shape[2], bq):
+        qb = qp[:, :, q0:q0 + bq]
+        m = torch.full((B, H, bq), -1e30, device=dev)
+        l = torch.zeros((B, H, bq), device=dev)
+        acc = torch.zeros((B, H, bq, hd), device=dev)
+        for k0 in range(0, kp.shape[2], bk):
+            if not _block_sees(q0, bq, k0, bk, **geo):
+                continue
+            msk = _block_mask(q0, bq, k0, bk, device=dev, **geo)
+            s = torch.einsum("bhqd,bhkd->bhqk", qb,
+                             kp[:, :, k0:k0 + bk]) * scale
+            s = torch.where(msk, s, -1e30)
             m_new = torch.maximum(m, s.amax(-1))
-            p = torch.exp(s - m_new[..., None])
-            p = torch.where(msk, p, torch.zeros_like(p))
+            p = torch.where(msk, torch.exp(s - m_new[..., None]), 0.0)
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(-1)
-            acc = acc * corr[..., None] + torch.einsum("bhqk,bhkd->bhqd",
-                                                       p, vb)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bhkd->bhqd", p, vp[:, :, k0:k0 + bk])
             m = m_new
         outs.append((acc / torch.clamp(l[..., None], min=1e-30)).to(q.dtype))
-    return torch.cat(outs, dim=2).transpose(1, 2)
+        lses.append(torch.where(l > 0, m + torch.log(torch.clamp(
+            l, min=1e-30)), 1e30))
+    return (torch.cat(outs, dim=2)[:, :, :Sq],
+            torch.cat(lses, dim=2)[:, :, :Sq])
+
+
+def _flash_bwd(q, k, v, out, lse, dout, causal, window, bq, bk, q_offset):
+    """``_flash_bwd_impl``: for each kv block (outer) and q block (inner),
+    p = exp(s - lse) masked, dv += p^T dout, ds = p (dp - delta) scale,
+    dk += ds^T q, dq += ds k; fp32 throughout, cast to the inputs'
+    types."""
+    B, H, Sq, hd = q.shape
+    Sk = k.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    delta = (dout.float() * out.float()).sum(-1)             # (B, H, Sq)
+    qp, dop = _pad_to(q, bq).float(), _pad_to(dout, bq).float()
+    kp, vp = _pad_to(k, bk).float(), _pad_to(v, bk).float()
+    pad_q = qp.shape[2] - Sq
+    lsep = Fn.pad(lse, (0, pad_q))
+    deltap = Fn.pad(delta, (0, pad_q))
+    dev = q.device
+    geo = dict(causal=causal, window=window, sk=Sk, q_offset=q_offset)
+    nq = qp.shape[2] // bq
+    dq = [torch.zeros((B, H, bq, hd), device=dev) for _ in range(nq)]
+    dks, dvs = [], []
+    for k0 in range(0, kp.shape[2], bk):
+        kf, vf = kp[:, :, k0:k0 + bk], vp[:, :, k0:k0 + bk]
+        dkj = torch.zeros((B, H, bk, hd), device=dev)
+        dvj = torch.zeros((B, H, bk, hd), device=dev)
+        for i in range(nq):
+            q0 = i * bq
+            if not _block_sees(q0, bq, k0, bk, **geo):
+                continue
+            msk = _block_mask(q0, bq, k0, bk, device=dev, **geo)
+            qf, dof = qp[:, :, q0:q0 + bq], dop[:, :, q0:q0 + bq]
+            s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+            p = torch.where(msk, torch.exp(
+                s - lsep[:, :, q0:q0 + bq, None]), 0.0)
+            dvj = dvj + torch.einsum("bhqk,bhqd->bhkd", p, dof)
+            dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+            ds = p * (dp - deltap[:, :, q0:q0 + bq, None]) * scale
+            dkj = dkj + torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+            dq[i] = dq[i] + torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+        dks.append(dkj)
+        dvs.append(dvj)
+    return (torch.cat(dq, dim=2)[:, :, :Sq].to(q.dtype),
+            torch.cat(dks, dim=2)[:, :, :Sk].to(k.dtype),
+            torch.cat(dvs, dim=2)[:, :, :Sk].to(v.dtype))
+
+
+class _FlashMHA(torch.autograd.Function):
+    """The JAX package's ``_flash_mha`` custom VJP: the forward keeps
+    (q, k, v, out, lse); the backward recomputes the blocks."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(q, k, v, causal, window, bq, bk, q_offset):
+        return _flash_fwd(q, k, v, causal, window, bq, bk, q_offset)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window, bq, bk, q_offset = inputs
+        out, lse = output
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.geometry = (causal, window, bq, bk, q_offset)
+        ctx.mark_non_differentiable(lse)
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, out, lse, dout, *ctx.geometry)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
+                      q_block: int = 512, kv_block: int = 1024,
+                      q_offset: int = 0) -> torch.Tensor:
+    """Flash attention in torch with an exact-memory backward.  q, k, v:
+    (B, S, H, hd) (kv pre-expanded to H heads).  Returns the same
+    layout."""
+    bq, bk = min(q_block, q.shape[1]), min(kv_block, k.shape[1])
+    out, _ = _FlashMHA.apply(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), causal, window, bq, bk,
+                             q_offset)
+    return out.transpose(1, 2)
 
 
 def attention_train(p, x, cfg, *, causal: bool = True,
@@ -357,3 +483,76 @@ def attention_decode(p, x, cache, pos, cfg):
     o = torch.einsum("bhqk,bkhd->bqhd", w, vc.float())
     o = o.to(x.dtype).reshape(B, 1, h * hd)
     return o @ p["wo"], cache
+
+
+# ----------------------------------------------------------------------
+# losses
+# ----------------------------------------------------------------------
+
+def _xent_chunks(x, labels, mask, chunk):
+    """Pad S to a multiple of ``chunk`` and yield each chunk's
+    (x (B, c, D), labels, mask)."""
+    pad = (-x.shape[1]) % chunk
+    if pad:
+        x = Fn.pad(x, (0, 0, 0, pad))
+        labels = Fn.pad(labels, (0, pad))
+        mask = Fn.pad(mask, (0, pad))
+    for s0 in range(0, x.shape[1], chunk):
+        yield (x[:, s0:s0 + chunk], labels[:, s0:s0 + chunk],
+               mask[:, s0:s0 + chunk])
+
+
+class _ChunkedXent(torch.autograd.Function):
+    """Masked mean next-token NLL over (x_final @ w_head) chunk by chunk.
+    The forward sums each chunk's NLL in chunk order, as the JAX
+    package's scan does; the backward recomputes each chunk's logits
+    (``jax.checkpoint`` over the scan body in the JAX package):
+    dlogits = (softmax - onehot) * mask * g / max(cnt, 1),
+    dx = dlogits @ w^T, dw = sum over chunks of x^T dlogits (summed in
+    float32, then cast to w's type)."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, w, labels, mask, chunk):
+        tot = torch.zeros((), device=x.device)
+        cnt = torch.zeros((), device=x.device)
+        for xc, lc, mc in _xent_chunks(x, labels, mask, chunk):
+            logits = (xc @ w).float()                        # (B, c, V)
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, lc[..., None].long())[..., 0]
+            tot = tot + ((lse - gold) * mc).sum()
+            cnt = cnt + mc.sum()
+        return tot / torch.clamp(cnt, min=1.0)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, labels, mask, chunk = inputs
+        ctx.save_for_backward(x, w, labels, mask)
+        ctx.chunk = chunk
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, labels, mask = ctx.saved_tensors
+        scale = g / torch.clamp(mask.float().sum(), min=1.0)
+        dxs, dw = [], torch.zeros(w.shape, device=w.device)
+        for xc, lc, mc in _xent_chunks(x, labels, mask, ctx.chunk):
+            logits = (xc @ w).float()
+            idx = lc[..., None].long()
+            dl = torch.softmax(logits, dim=-1) - torch.zeros_like(
+                logits).scatter(-1, idx, 1.0)
+            dl = (dl * (mc * scale)[..., None]).to(x.dtype)
+            dxs.append(dl @ w.transpose(-1, -2))
+            dw = dw + (xc.transpose(-1, -2) @ dl).float()
+        dx = torch.cat(dxs, dim=1)[:, :x.shape[1]]
+        return dx, dw.to(w.dtype), None, None, None
+
+
+def chunked_softmax_xent(logits_fn, x_final, w_head, labels, mask,
+                         chunk: int = 256):
+    """Cross-entropy with the vocab projection fused per sequence chunk,
+    so the (B, S, V) logits are never held (``logits_fn`` is unused, as
+    in the JAX package).  x_final: (B, S, D) final hidden states; w_head:
+    (D, V); labels, mask: (B, S)."""
+    return _ChunkedXent.apply(x_final, w_head, labels, mask,
+                              min(chunk, x_final.shape[1]))

@@ -307,7 +307,7 @@ def make_runtime(cfg: FLConfig, adapter: ModelAdapter, x, y, clients,
         return DeviceRuntime(cfg, adapter, x, y, clients, device)
     if cfg.runtime == "sharded":
         raise NotImplementedError(
-            "runtime 'sharded' is not ported yet (ROADMAP.md, queue 1 item "
-            "10: the multi-GPU sharded runtime)")
+            "runtime 'sharded' is not ported yet (ROADMAP.md, queue 1: "
+            "the sharded runtime and --cohort-devices)")
     raise ValueError(
         f"unknown FLConfig.runtime={cfg.runtime!r}; expected {RUNTIMES}")

@@ -1,6 +1,8 @@
 """The CUDA kernels (lloyd_step, kmeans_assign, flash_attention) against
-their plain versions on the card, and the batched cohort runtimes on the
-card against the same runtimes on the CPU.
+their plain versions on the card, the batched cohort runtimes on the
+card against the same runtimes on the CPU, and the LM training path's
+two hand-written backwards and transformer FL on the card against the
+CPU.
 
 Marked ``gpu``: it needs a CUDA device and nvcc, and skips elsewhere
 (the decision is made inside the fixture, never at import).  Run it on a
@@ -524,3 +526,65 @@ def test_defended_warm_loop_has_no_host_sync_and_matches_cpu(cuda, runtime):
     assert a[0] == b[0] and torch.equal(a[1], b[1]) and a[2] == b[2]
     for k in a[3]:
         assert float((a[3][k] - b[3][k]).abs().max()) < 1e-4, k
+
+
+# ----------------------------------------------------------------------
+# the LM training path: the two hand-written backwards and transformer
+# FL on the card against the CPU
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("causal,window,sk", [(True, 0, 300), (True, 37, 300),
+                                              (False, 0, 211)])
+def test_chunked_attention_backward_on_cuda_matches_cpu(cuda, causal,
+                                                        window, sk):
+    from repro_torch.models import layers as TL
+    g = torch.Generator(device="cpu").manual_seed(sk + window)
+    q = torch.randn(2, 300, 3, 64, generator=g)
+    k, v = (torch.randn(2, sk, 3, 64, generator=g) for _ in range(2))
+    dout = torch.randn(2, 300, 3, 64, generator=g)
+
+    def run(dev):
+        ins = [t.to(dev).requires_grad_() for t in (q, k, v)]
+        out = TL.chunked_attention(*ins, causal=causal, window=window,
+                                   q_block=64, kv_block=96)
+        grads = torch.autograd.grad(out, ins, dout.to(dev))
+        return [t.detach().cpu() for t in (out, *grads)]
+
+    for a, b in zip(run(cuda), run("cpu")):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-5)
+
+
+def test_chunked_xent_backward_on_cuda_matches_cpu(cuda):
+    from repro_torch.models import layers as TL
+    g = torch.Generator(device="cpu").manual_seed(0)
+    x = torch.randn(2, 300, 64, generator=g)
+    w = torch.randn(64, 5000, generator=g) / 8.0
+    lab = torch.randint(0, 5000, (2, 300), generator=g)
+    mask = (torch.rand(2, 300, generator=g) > 0.2).float()
+
+    def run(dev):
+        ins = [t.to(dev).requires_grad_() for t in (x, w)]
+        val = TL.chunked_softmax_xent(None, *ins, lab.to(dev), mask.to(dev),
+                                      chunk=128)
+        return [t.detach().cpu() for t in (val, *torch.autograd.grad(
+            val, ins))]
+
+    for a, b in zip(run(cuda), run("cpu")):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("runtime", ["sequential", "vectorized", "device"])
+def test_transformer_fl_on_cuda_matches_cpu(cuda, runtime):
+    """--mode transformer for 2 rounds at 10 clients: the same winners
+    and test losses on the card as on the CPU."""
+    from repro_torch.launch import train as TRAIN
+    args = ["--mode", "transformer", "--clients", "50", "--rounds", "2",
+            "--runtime", runtime, "--quiet"]
+    got = TRAIN.main(args)
+    want = TRAIN.main(args + ["--device", "cpu"])
+    assert got["device"] == "cuda" and want["device"] == "cpu"
+    assert got["selected"] == want["selected"]
+    np.testing.assert_allclose(got["test_loss"], want["test_loss"],
+                               rtol=1e-5, atol=1e-5)

@@ -171,7 +171,8 @@ SMALL = ["--clients", "12", "--clusters", "3", "--rounds", "1", "--pool",
 
 
 @pytest.mark.parametrize("flag", [["--runtime", "sharded"],
-                                  ["--mode", "transformer"],
+                                  ["--mode", "transformer", "--arch",
+                                   "qwen3-moe-235b-a22b"],
                                   ["--cohort-devices", "2"]])
 def test_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError):
