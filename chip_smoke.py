@@ -139,6 +139,32 @@
    against autograd through the naive attention (ATTN_BWD_TOL), and
    ``chunked_softmax_xent``'s value and grads at (2, 4,096, 151,936)
    against the direct fp32 log-softmax (XENT_VALUE_TOL, XENT_GRAD_TOL).
+15. Zoo transformer path (after the transformer path): the same
+   ``--mode transformer`` runs for the MoE, Mamba and xLSTM archs' smoke
+   configs, 3 rounds each: granite-moe-3b-a800m on all three runtimes,
+   qwen3-moe-235b-a22b, jamba-v0.1-52b and xlstm-1.3b on ``sequential``,
+   held the same way to ZOO_REFERENCE (tools/record_zoo_reference.py).
+16. Zoo serving path (after the serving path), each model at full width
+   (ZOO_SERVING; bf16, ``PRNGKey(0)``, ``attn_impl="pallas"``):
+   granite-moe-3b-a800m (32 layers, 40 experts top-8), one 8-layer period
+   of jamba-v0.1-52b (Mamba, MoE and one attention layer) and
+   xlstm-1.3b (48 sLSTM/mLSTM blocks).  For each: ``init_params``
+   seconds, parameters and GB; a prefill (4,096 tokens, 1,024 for xlstm)
+   with counts reset before and read after (one flash_attention launch
+   per attention layer: 32 and 1), tokens/s and peak memory; the kernel
+   prefill against the naive one; a teacher-forced decode of 256 steps
+   against a prefill of the same tokens; and a 4 x (16 + 32) serve
+   replayed.  The comparisons run at capacity factor 8.0 and print the
+   share of positions within LOGITS_REL_TOL and the (token, layer) pairs
+   whose experts differ.  In bf16 at full depth they are measured; the
+   rule is held in bf16 on granite-moe cut to BF16_GATE's depth, where
+   the JAX package meets it (tools/moe_bf16_witness.py).  The float32
+   model of the same draws at the same width is held to
+   tests/test_models.py's rule for its arch (RULE_BY_SHARE): the kernel
+   prefill against the naive one, and 1,025 decode steps against a
+   kernel prefill of the same tokens; for xlstm every block's 128
+   decode steps against its full-sequence form (ZOO_SERVING says why
+   block by block).
 
 It prints one JSON line with the kernels' numbers and, last, the JSON
 status line.  ``--profile`` adds a torch.profiler pass before them:
@@ -472,13 +498,18 @@ SELECTION_CHECK_ROUNDS = 10
 # tokens, "phi3v" phi-3-vision's head_dim 96 (32 heads) at 4,096 tokens,
 # "ragged" a length off the 64-key tiles with head_dim 96 in fp32 (the
 # CUDA-core instantiation), "hd28" qwen2-0.5b's smoke config (4 heads of
-# head_dim 28, which the wrapper zero-pads to 32) at 2,048 tokens
+# head_dim 28, which the wrapper zero-pads to 32) at 2,048 tokens,
+# "granite" and "jamba" the zoo serving path's 4,096-token prefills
+# (granite-moe: 24 heads of 64 after the GQA 24:8 expansion; jamba: 32
+# heads of 128 after GQA 32:8, no RoPE)
 FLASH_SHAPES = (
     ("qwen2", 1, 4096, 14, 64, torch.bfloat16, True, 0),
     ("window", 1, 8192, 24, 128, torch.bfloat16, True, 4096),
     ("phi3v", 1, 4096, 32, 96, torch.bfloat16, True, 0),
     ("ragged", 2, 1100, 3, 96, torch.float32, False, 0),
     ("hd28", 1, 2048, 4, 28, torch.bfloat16, True, 0),
+    ("granite", 1, 4096, 24, 64, torch.bfloat16, True, 0),
+    ("jamba", 1, 4096, 32, 128, torch.bfloat16, True, 0),
 )
 # per-element bound against the plain version, |out - want| <= atol +
 # rtol * |want|.  Both compute in fp32 and differ only in the order of
@@ -512,6 +543,59 @@ TF_RUNTIMES = ("sequential", "vectorized", "device")
 # 1e-6)
 TF_LOSS_TOL = 1e-5
 TF_ACC_TOL = 1.0 / (64 * 31)
+# the zoo transformer path: the MoE, Mamba and xLSTM archs' smoke configs
+# at the same CLI defaults for 3 rounds, held to the JAX package's runs
+# (tools/record_zoo_reference.py) under the same tolerances
+ZOO_REFERENCE = ROOT / "tools" / "zoo_reference.json"
+# a recurrent block's decode against its full-sequence form, block by
+# block, in bf16 (xlstm's blocks and jamba's Mamba blocks) and for xlstm
+# in float32: the steps.  Over these steps on the CPU xlstm-1.3b's 48
+# blocks keep within 6.1e-3 (the JAX package) and 5.8e-3 (the port) of
+# their largest output in bf16, 5.1e-5 and 1.3e-5 in float32
+# (tools/xlstm_depth_gap.py)
+BLOCK_STEPS = 128
+# the zoo serving path, each model at full width from PRNGKey(0), bf16,
+# attn_impl "pallas": (arch, layers kept or None for all, prefill
+# tokens, bf16 teacher-forced decode steps (measured), float32 decode
+# steps held to the rule, whether the rule is held block by block).
+# jamba keeps one 8-layer period of its 32 layers: the whole model is 52
+# G parameters (104 GB in bf16, over the card's 80 GB), one period 13.3
+# G.  xlstm's 12 sLSTM layers
+# step one token at a time (about 25 launches a step a layer), so its
+# prefill is 1,024 tokens and its decode 256 steps.  A decode longer
+# than 1,024 steps checks against a kernel prefill.  At random weights
+# xlstm's end-to-end decode-vs-prefill gap grows with depth, in the JAX
+# package as in the port, in float32 and in bf16 (tools/xlstm_depth_gap.py:
+# at 48 layers in float32 the JAX package's own gap over 12 tokens is
+# 0.012-0.032 of the largest logit, over LOGITS_REL_TOL in 2 of 3 draws),
+# so its rule is held block by block, each block given the prefill's
+# input, and the end-to-end gap is printed.
+ZOO_SERVING = (
+    ("granite-moe-3b-a800m", None, 4096, 256, 1025, False),
+    ("jamba-v0.1-52b", 8, 4096, 256, 1025, False),
+    ("xlstm-1.3b", None, 1024, 256, BLOCK_STEPS, True),
+)
+# tests/test_models.py's rules, by arch: for the MoE archs it names
+# (RULE_BY_SHARE, :117-139), with capacity factor 8.0 (no token dropped
+# at either shape), at least 70 % of positions within LOGITS_REL_TOL (an
+# expert flips where the router sits on a top-k boundary that rounding
+# crosses); for every other arch, jamba's MoE layers included (:86-114),
+# every position within it.  The JAX package holds its float32 configs
+# to them, and so does the zoo serving path: the float32 model at full
+# width.
+MOE_CAPACITY_CHECK, MOE_SHARE = 8.0, 0.7
+RULE_BY_SHARE = ("qwen3-moe-235b-a22b", "granite-moe-3b-a800m")
+# The rule in bf16.  bf16 rounding moves routers across top-k boundaries
+# in both packages, and the share falls with depth: granite-moe at full
+# width, 256 tokens, the same weights and tokens, on the CPU
+# (tools/moe_bf16_witness.py): the JAX package keeps 0.898 / 0.801 /
+# 0.668 of positions at 4 / 8 / 16 layers, the port 0.930 / 0.832 /
+# 0.719 (expert flips 90 and 84 of 2,048 (token, layer) pairs at 8
+# layers); at 32 layers on an H100 the port keeps about 0.64 (PERF.md).
+# So the bf16 rule is held where the JAX package meets it: granite-moe
+# cut to BF16_GATE's layers, its decode against the prefill of the
+# witness's tokens.
+BF16_GATE = ("granite-moe-3b-a800m", 8, 256)
 # the full-width train step: qwen2-0.5b's CONFIG (24 layers, bf16,
 # remat, chunked attention) at train_4k's length, batch cut from 256 to
 # 2 for one card; 3 SGD steps on one fixed batch
@@ -881,6 +965,288 @@ def serving_path(OPS, cuda) -> int:
           f"prefill_s={out['prefill_s']!r} decode_s={out['decode_s']!r} "
           f"tokens_per_s={batch * gen / out['decode_s']!r} "
           f"ids[0,:16]={ids[0, :16].tolist()}", flush=True)
+    return launches
+
+
+def per_position_rel(got, want):
+    """(S,) largest |got - want| at each position over the largest
+    |want| (got, want: (S, V))."""
+    return (got.float() - want.float()).abs().amax(-1) \
+        / want.float().abs().max()
+
+
+def record_routing(MOE, routes):
+    """Wrap ``MOE.moe_forward`` (which the prefill reaches through
+    ``apply_moe`` and a decode step directly) so each call appends its
+    tokens' top-k expert sets (sorted ids, (T, K)) to ``routes``;
+    returns the original, to put back."""
+    orig = MOE.moe_forward
+
+    def recording(p, x, cfg, **kw):
+        probs = MOE.router_probs(p, x.reshape(-1, x.shape[-1]))
+        routes.append(MOE.top_k(probs, cfg.experts_per_token)[1]
+                      .sort(-1).values)
+        return orig(p, x, cfg, **kw)
+
+    MOE.moe_forward = recording
+    return orig
+
+
+def routed_logits(MD, MOE, cfg, params, toks, n_moe):
+    """(logits (S, V) of one sequence, its (layers, S, K) expert sets)."""
+    routes = []
+    orig = record_routing(MOE, routes) if n_moe else None
+    try:
+        logits = MD.logits_fn(cfg, params, toks)[0]
+    finally:
+        if orig is not None:
+            MOE.moe_forward = orig
+    return logits, (torch.stack(routes) if n_moe else None)
+
+
+def agreement(OPS, cuda, arch, cfg, params, prefill_len, steps,
+              gate) -> None:
+    """The kernel prefill against the naive one (``prefill_len`` tokens,
+    where the model has attention and the prefill reaches the kernel),
+    and a teacher-forced decode of ``steps`` tokens against a prefill of
+    the same tokens (through the kernel when ``steps`` > 1,024), at
+    capacity factor MOE_CAPACITY_CHECK: the per-position relative gaps,
+    their share within LOGITS_REL_TOL and the (token, layer) pairs whose
+    experts differ, printed.  With ``gate`` both are held to
+    tests/test_models.py's rule for ``arch`` (RULE_BY_SHARE)."""
+    from repro_torch import rng
+    from repro_torch.models import model as MD
+    from repro_torch.models import moe as MOE
+
+    cfg = cfg.replace(moe_capacity_factor=MOE_CAPACITY_CHECK)
+    n_attn = cfg.num_groups * sum(b.mixer == "attn" for b in cfg.cycle)
+    n_moe = cfg.num_groups * sum(b.ffn == "moe" for b in cfg.cycle)
+    tag = f"{cfg.name} ({cfg.num_layers} layers, {cfg.dtype})"
+    by_share = arch in RULE_BY_SHARE
+
+    def judge(what, per_pos, a, b):
+        share = float((per_pos < LOGITS_REL_TOL).float().mean())
+        worst = float(per_pos.max())
+        if gate and by_share:
+            require(share >= MOE_SHARE, f"{tag}: {what}: {share} of "
+                    f"positions within {LOGITS_REL_TOL}, the rule asks "
+                    f"{MOE_SHARE}")
+        elif gate:
+            require(worst < LOGITS_REL_TOL, f"{tag}: {what}: {worst} >= "
+                    f"{LOGITS_REL_TOL}")
+        routing = ""
+        if n_moe:
+            differ = int((a != b).any(-1).sum())
+            routing = (f" routing disagreements (token, layer)={differ} of "
+                       f"{a.shape[0] * a.shape[1]}")
+        rule = (f"gated: share >= {MOE_SHARE}" if by_share
+                else f"gated: every position < {LOGITS_REL_TOL}")
+        print(f"  {tag} {what}: share_within_{LOGITS_REL_TOL}={share!r} "
+              f"max_rel={worst!r} median_rel="
+              f"{float(per_pos.median())!r}{routing}"
+              f" ({rule if gate else 'measured, not gated'})", flush=True)
+
+    if n_attn and prefill_len > 1024:
+        toks = rng.randint(rng.PRNGKey(1), (1, prefill_len), 0,
+                           cfg.vocab_size, cuda)
+        kern, rk = routed_logits(MD, MOE, cfg, params, toks, n_moe)
+        plain, rp = routed_logits(MD, MOE, cfg.replace(attn_impl="naive"),
+                                  params, toks, n_moe)
+        judge("kernel vs naive prefill", per_position_rel(kern, plain), rk,
+              rp)
+        del kern, plain
+
+    toks = rng.randint(rng.PRNGKey(2), (1, steps), 0, cfg.vocab_size, cuda)
+    before = OPS.flash_attention.launches
+    full, rf = routed_logits(MD, MOE, cfg, params, toks, n_moe)
+    through_kernel = bool(n_attn) and steps > 1024
+    if through_kernel:
+        require(OPS.flash_attention.launches == before + n_attn,
+                f"{tag}: the decode reference prefill did not run the "
+                "kernel")
+    routes = []
+    orig = record_routing(MOE, routes) if n_moe else None
+    try:
+        state = MD.init_decode_state(cfg, 1, steps, cuda)
+        rel = []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for p in range(steps):
+            lg, state = MD.decode_step(cfg, params, state, toks[:, p], p)
+            rel.append((lg[0] - full[p].float()).abs().max())
+        torch.cuda.synchronize()
+        dec_s = (time.perf_counter() - t) / steps
+    finally:
+        if orig is not None:
+            MOE.moe_forward = orig
+    rd = (torch.stack(routes).reshape(steps, n_moe, -1).transpose(0, 1)
+          if n_moe else None)
+    what = ("decode vs kernel prefill" if through_kernel
+            else "decode vs prefill")
+    print(f"  {tag} decode: {steps} teacher-forced steps, {dec_s!r} s a "
+          f"step{' (routing recorded)' if n_moe else ''}", flush=True)
+    judge(what, torch.stack(rel) / full.float().abs().max(), rf, rd)
+
+
+def per_block_agreement(cuda, cfg, params, steps) -> None:
+    """Each recurrent block of the stack (Mamba, mLSTM, sLSTM), given the
+    prefill's own input to it: its decode steps against its full-sequence
+    form, every block within LOGITS_REL_TOL of its largest output; an
+    attention block passes its full-sequence output on.  For xlstm at
+    full depth, whose end-to-end gap grows with depth in the JAX package
+    too (ZOO_SERVING), and for the recurrent blocks in bf16."""
+    from repro_torch import rng
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as MD
+
+    tag = f"{cfg.name} ({cfg.num_layers} layers, {cfg.dtype})"
+    toks = rng.randint(rng.PRNGKey(2), (1, steps), 0, cfg.vocab_size, cuda)
+    x = params["tok_embed"][toks]
+    gaps = []
+    for g in range(cfg.num_groups):
+        for pos, spec in enumerate(cfg.cycle):
+            bp = MD._group(params["blocks"][pos], g)
+            h = L.apply_norm(bp["ln1"], x, cfg.norm_eps)
+            mixer = MD.MIXERS[spec.mixer]
+            full = mixer.apply(bp["mixer"], h, cfg, True)
+            if spec.mixer != "attn":
+                cache = mixer.cache(cfg, 1, steps, (), cuda)
+                outs = [mixer.decode(bp["mixer"], h[:, t:t + 1], cache, t,
+                                     cfg) for t in range(steps)]
+                gaps.append((torch.cat(outs, 1) - full).float().abs().max()
+                            / full.float().abs().max())
+            x = x + full
+            if spec.ffn != "none":
+                x = MD._ffn_half(bp, x, cfg, spec)[0]
+    gaps = torch.stack(gaps)
+    worst = float(gaps.max())
+    print(f"  {tag} per-block decode vs full sequence over {steps} tokens: "
+          f"max_rel={worst!r} (recurrent block {int(gaps.argmax())} of "
+          f"{gaps.numel()}) median_rel={float(gaps.median())!r} (gated)",
+          flush=True)
+    require(worst < LOGITS_REL_TOL, f"{tag}: a block's decode is {worst} "
+            f"off its full-sequence form (>= {LOGITS_REL_TOL})")
+
+
+def serve_zoo_model(OPS, cuda, arch, layers, prefill_len, steps, gate_steps,
+                    per_block) -> int:
+    """One ZOO_SERVING model on the card.  In bf16, as it serves: init, a
+    prefill (counts reset before, read after; tokens/s, peak memory), the
+    agreement measurements (:func:`agreement`, printed), and a 4 x (16 +
+    32) serve replayed.  Then the float32 model of the same draws at the
+    same width, held to tests/test_models.py's rule for the arch, which
+    the JAX package writes for float32 configs (in bf16 the paths differ
+    by bf16's own rounding: BF16_GATE).  Returns the bf16 prefill's
+    flash_attention launches."""
+    from repro_torch import rng
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as MD
+
+    cfg = get_config(arch).replace(attn_impl="pallas")
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    n_attn = cfg.num_groups * sum(b.mixer == "attn" for b in cfg.cycle)
+    tag = f"zoo serving {cfg.name} ({cfg.num_layers} layers)"
+
+    def init(c):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        params = MD.init_params(c, rng.PRNGKey(0), cuda)
+        torch.cuda.synchronize()
+        n = sum(v.numel() for v in MD.flatten_params(params).values())
+        print(f"{tag}: d_model={c.d_model} {c.dtype} params={n} ("
+              f"{torch.cuda.memory_allocated() / 1e9!r} GB) init_params "
+              f"{time.perf_counter() - t!r} s, peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9!r} GB", flush=True)
+        return params
+
+    params = init(cfg)
+    # ---- prefill, counts reset before and read after -------------------
+    toks = rng.randint(rng.PRNGKey(1), (1, prefill_len), 0, cfg.vocab_size,
+                       cuda)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(OPS)
+    t = time.perf_counter()
+    logits = MD.logits_fn(cfg, params, toks)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    launches = OPS.flash_attention.launches
+    want = n_attn if prefill_len > 1024 else 0
+    require(launches == want, f"{tag}: prefill made {launches} "
+            f"flash_attention launches, expected {want}")
+    require(OPS.lloyd_step.launches == OPS.kmeans_assign.launches == 0,
+            f"{tag}: prefill launched a k-means kernel")
+    require(tuple(logits.shape) == (1, prefill_len, cfg.vocab_size)
+            and bool(torch.isfinite(logits).all()),
+            f"{tag}: prefill logits not finite or of the wrong shape")
+    del logits
+    # the earlier phases have loaded the kernels and libraries: one run
+    print(f"{tag} prefill: S={prefill_len} flash_attention launches="
+          f"{launches} wall_s={prefill_s!r} "
+          f"tokens_per_s={prefill_len / prefill_s!r} peak_gb="
+          f"{torch.cuda.max_memory_allocated() / 1e9!r}", flush=True)
+    agreement(OPS, cuda, arch, cfg, params, prefill_len, steps, gate=False)
+
+    # ---- serve 4 x (16 + 32); replay to check the ids ------------------
+    batch, prompt_len, gen = 4, 16, 32
+    out = serve(cfg, params, batch, prompt_len, gen, cuda)
+    ids = out["tokens"]
+    require(tuple(ids.shape) == (batch, gen), f"{tag}: served "
+            f"{tuple(ids.shape)}")
+    seq = torch.cat([out["prompts"], ids.long()], dim=1)
+    state = MD.init_decode_state(cfg, batch, prompt_len + gen, cuda)
+    for p in range(prompt_len + gen - 1):
+        lg, state = MD.decode_step(cfg, params, state, seq[:, p], p)
+        if p >= prompt_len - 1:
+            got = lg.gather(1, seq[:, p + 1:p + 2])[:, 0]
+            require(bool((got == lg.max(dim=1).values).all()),
+                    f"{tag}: served id at position {p + 1} is not the "
+                    "argmax of its logits")
+    print(f"{tag} serve: batch={batch} prompt_len={prompt_len} gen={gen} "
+          f"prefill_s={out['prefill_s']!r} decode_s={out['decode_s']!r} "
+          f"tokens_per_s={batch * gen / out['decode_s']!r} "
+          f"ids[0,:16]={ids[0, :16].tolist()}", flush=True)
+    del state
+    if any(b.mixer != "attn" for b in cfg.cycle):
+        per_block_agreement(cuda, cfg, params, BLOCK_STEPS)
+    del params
+
+    # ---- the rules, on the float32 model at the same width -------------
+    fcfg = cfg.replace(dtype="float32")
+    params = init(fcfg)
+    if per_block:
+        per_block_agreement(cuda, fcfg, params, gate_steps)
+    else:
+        agreement(OPS, cuda, arch, fcfg, params, prefill_len, gate_steps,
+                  gate=True)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def bf16_rule(OPS, cuda) -> None:
+    """The rule in bf16 where the JAX package meets it (BF16_GATE):
+    granite-moe at full width cut in depth, its decode against the
+    prefill of the same tokens."""
+    from repro_torch import rng
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as MD
+
+    arch, layers, steps = BF16_GATE
+    cfg = get_config(arch).replace(attn_impl="pallas", num_layers=layers)
+    params = MD.init_params(cfg, rng.PRNGKey(0), cuda)
+    agreement(OPS, cuda, arch, cfg, params, 0, steps, gate=True)
+    del params
+    torch.cuda.empty_cache()
+
+
+def zoo_serving_path(OPS, cuda) -> int:
+    """The ZOO_SERVING models in turn and the bf16 rule; returns their
+    prefills' flash_attention launches."""
+    launches = sum(serve_zoo_model(OPS, cuda, *spec) for spec in ZOO_SERVING)
+    bf16_rule(OPS, cuda)
     return launches
 
 
@@ -1988,13 +2354,16 @@ def robust_path(OPS, obs, card) -> int:
     return launches
 
 
-def transformer_path(OPS, TRAIN, obs, servers) -> int:
-    """``--mode transformer`` at the CLI defaults on the card: qwen2-0.5b
-    for 30 rounds on each runtime and each other dense arch for 3 on
-    ``sequential``, counts reset before and read after each run (26
-    ``lloyd_step`` launches), held to the JAX package's labels, winners
-    and round metrics (TRANSFORMER_REFERENCE).  Returns the launches."""
-    ref = json.loads(TRANSFORMER_REFERENCE.read_text())
+def transformer_path(OPS, TRAIN, obs, servers,
+                     reference=TRANSFORMER_REFERENCE) -> int:
+    """``--mode transformer`` at the CLI defaults on the card for every
+    run of ``reference`` (TRANSFORMER_REFERENCE: qwen2-0.5b for 30 rounds
+    on each runtime and each other dense arch for 3 on ``sequential``;
+    ZOO_REFERENCE: the MoE, Mamba and xLSTM archs), counts reset before
+    and read after each run (26 ``lloyd_step`` launches), held to the JAX
+    package's labels, winners and round metrics.  Returns the
+    launches."""
+    ref = json.loads(reference.read_text())
     runs = [(arch, rt) for arch, by_rt in ref["runs"].items()
             for rt in TF_RUNTIMES if rt in by_rt]
     total = 0
@@ -2398,6 +2767,11 @@ def main() -> int:
     phase("transformer path", t0)
     tf_launches = transformer_path(OPS, TRAIN, obs, servers)
 
+    # ---- zoo transformer path -------------------------------------------
+    phase("zoo transformer path", t0)
+    zoo_tf_launches = transformer_path(OPS, TRAIN, obs, servers,
+                                       ZOO_REFERENCE)
+
     # ---- selection path -------------------------------------------------
     phase("selection path", t0)
     selection_path(OPS, TRAIN, cuda)
@@ -2405,6 +2779,10 @@ def main() -> int:
     # ---- serving path --------------------------------------------------
     phase("serving path", t0)
     flash_launches = serving_path(OPS, cuda)
+
+    # ---- zoo serving path ----------------------------------------------
+    phase("zoo serving path", t0)
+    zoo_flash_launches = zoo_serving_path(OPS, cuda)
 
     # ---- full-width train step -------------------------------------------
     phase("full-width train step", t0)
@@ -2425,22 +2803,29 @@ def main() -> int:
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                 "bound_by": m["bound_by"], "library_ms": library_ms}
 
+    lloyd_launches = (dyn_launches + robust_launches + tf_launches
+                      + zoo_tf_launches)
     print(f"lloyd_step launches by path: dynamics {dyn_launches} (its "
           f"churn-0.1 run), robust {robust_launches} (26 a run), "
-          f"transformer {tf_launches} (26 a run); the kernels line's "
-          f"launches is their total, "
-          f"{dyn_launches + robust_launches + tf_launches}", flush=True)
+          f"transformer {tf_launches} (26 a run), zoo transformer "
+          f"{zoo_tf_launches} (26 a run); the kernels line's launches is "
+          f"their total, {lloyd_launches}", flush=True)
+    print(f"flash_attention launches by path: serving {flash_launches} "
+          f"(qwen2-0.5b's prefill), zoo serving {zoo_flash_launches} "
+          f"(granite-moe's and jamba's prefills); the kernels line's "
+          f"launches is their total, {flash_launches + zoo_flash_launches}",
+          flush=True)
     print(json.dumps({"kernels": [
         row("lloyd_step", "src/repro_torch/csrc/kmeans.cu",
             "src/repro/kernels/kmeans.py:144",
-            dyn_launches + robust_launches + tf_launches,
-            shapes["main"], None),
+            lloyd_launches, shapes["main"], None),
         row("kmeans_assign", "src/repro_torch/csrc/kmeans.cu",
             "src/repro/kernels/kmeans.py:109", assign_launches,
             assign["main"], None),
         row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-            "src/repro/kernels/flash_attention.py:81", flash_launches,
-            flash["qwen2"], flash["qwen2"]["library_ms"])]}))
+            "src/repro/kernels/flash_attention.py:81",
+            flash_launches + zoo_flash_launches, flash["qwen2"],
+            flash["qwen2"]["library_ms"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,8 +5,8 @@
   ``cycle`` of (mixer, ffn) block kinds, plus :class:`ShapeConfig` and
   ``INPUT_SHAPES``.  Field for field and default for default the JAX
   package's, so one config drives both packages; the port's model code
-  runs the dense ``("attn", "mlp")`` cycles and refuses the rest (see
-  ``repro_torch.models.model``).
+  runs every cycle and refuses the encoder-decoder and learned
+  positions (see ``repro_torch.models.model``).
 * :class:`FLConfig` — the paper's federated-learning system knobs
   (Table I defaults).  The port runs only the slice of these knobs its
   modules implement; every other value is refused where it would be used

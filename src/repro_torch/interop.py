@@ -4,8 +4,8 @@ CNN parameter dict keeps ``c1_w`` (HWIO), ``f1_w`` (in, out), ... and
 every float is float32 (JAX runs with x64 off).  A transformer's tree
 keeps its nesting: ``tok_embed``, ``blocks`` (a tuple with one dict per
 cycle position, each leaf with a leading group axis), ``final_norm`` and
-an optional ``lm_head``, in the config's dtype; the FL plane holds it in
-its flat view (``models.model.flatten_params``)."""
+an optional ``lm_head``, each leaf in its own dtype; the FL plane holds
+it in its flat view (``models.model.flatten_params``)."""
 from __future__ import annotations
 
 from typing import Any, Dict, Mapping
@@ -49,21 +49,28 @@ def selection_state_from_numpy(clusters, residual, history, local_sizes,
                           local_sizes=as_t(local_sizes, torch.int32))
 
 
+_LEAF_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def model_params_from_numpy(tree: Any, cfg, device="cuda") -> Any:
     """A JAX transformer parameter tree (numpy leaves) -> the port's tree,
-    name for name, in ``cfg.dtype``.  A JAX bfloat16 array reaches numpy
-    as ``ml_dtypes.bfloat16``; it goes through float32, which holds every
-    bfloat16 value exactly."""
+    name for name.  Each leaf keeps its own type: a config in bfloat16
+    still holds float32 leaves (the MoE router, Mamba's ``a_log``,
+    ``b_dt`` and ``d_skip``, the xLSTM gates), which must not be rounded.
+    A JAX bfloat16 array reaches numpy as ``ml_dtypes.bfloat16``; it goes
+    through float32, which holds every bfloat16 value exactly.  A leaf of
+    any other type is taken in ``cfg.dtype``."""
     device = resolve_device(device)
-    dt = torch_dtype(cfg.dtype)
+    default = torch_dtype(cfg.dtype)
 
     def conv(node):
         if isinstance(node, Mapping):
             return {k: conv(v) for k, v in node.items()}
         if isinstance(node, (tuple, list)):
             return tuple(conv(v) for v in node)
-        return torch.tensor(np.asarray(node, np.float32),
-                            device=device).to(dt)
+        a = np.asarray(node)
+        dt = _LEAF_DTYPES.get(a.dtype.name, default)
+        return torch.tensor(a.astype(np.float32), device=device).to(dt)
 
     return conv(tree)
 

@@ -11,10 +11,11 @@ transformer`` and ``--mode selection``.
   * ``--mode transformer``: the same FL plane over a registry LM
     (``--arch``, at its smoke config, as the JAX CLI trains it):
     next-token training on topic-conditional token sequences
-    (``make_token_dataset``), partitioned non-IID by topic.  The dense
-    archs run (qwen2-0.5b, qwen1.5-4b, qwen1.5-32b, starcoder2-3b,
-    phi-3-vision-4.2b without its image prefix); the others raise
-    ``NotImplementedError``.
+    (``make_token_dataset``), partitioned non-IID by topic.  Every arch
+    without an encoder runs: the dense ones (phi-3-vision-4.2b without
+    its image prefix), the MoE ones (granite-moe-3b-a800m,
+    qwen3-moe-235b-a22b), jamba-v0.1-52b (Mamba and MoE) and xlstm-1.3b;
+    whisper-tiny raises ``NotImplementedError``.
   * ``--mode selection``: the selection-only simulation — the per-round
     auction and energy dynamics without training, over a synthetic fleet
     (``core/rounds.simulate_rounds``), at up to a million clients.  It

@@ -1,13 +1,16 @@
 """Model assembly: embeddings -> block groups -> norm -> LM head
-(``repro.models.model`` for the dense stack).
+(``repro.models.model`` without the encoder-decoder).
 
 A config's ``cycle`` describes one period of the layer stack; the
 parameters of each cycle position are stacked over ``num_groups`` (a
 leading group axis, as the JAX package stacks them for its ``lax.scan``),
-and the stack is applied by a Python loop over the groups.  The port runs
-dense cycles of ``("attn", "mlp")`` blocks without an encoder; every
-other config raises ``NotImplementedError`` (ROADMAP.md, queue 1: the
-rest of the model zoo).
+and the stack is applied by a Python loop over the groups.  A block's
+mixer is attention, Mamba (``models.mamba``), mLSTM or sLSTM
+(``models.xlstm``), and its FFN a dense MLP, an MoE (``models.moe``,
+whose auxiliary load-balance losses the stack sums) or none.  The
+encoder-decoder (whisper), learned positions and the multimodal prefix at
+decode raise ``NotImplementedError`` (ROADMAP.md, queue 1: the rest of
+the model zoo).
 
 With ``cfg.remat`` each block runs under ``torch.utils.checkpoint``
 (non-reentrant), so the backward holds one block's activations at a
@@ -24,8 +27,8 @@ sorted keys run in ``jax.tree.leaves`` order of the JAX tree.
 
 Public API:
   init_params(cfg, key, device)               -> params tree
-  forward(cfg, params, tokens, ...)           -> final hidden states (B,S,D)
-  loss_fn(cfg, params, batch)                 -> mean next-token NLL
+  forward(cfg, params, tokens, ...)           -> (hidden (B,S,D), moe aux)
+  loss_fn(cfg, params, batch)                 -> NLL + 0.01 * moe aux
   logits_fn(cfg, params, tokens, ...)         -> logits (B, S, V)
   flatten_params(tree) / nested_params(flat)  -> the flat view and back
   value_and_grad(loss, flat, batch)           -> (loss, grads by key)
@@ -34,7 +37,8 @@ Public API:
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from functools import partial
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -43,12 +47,14 @@ from repro_torch import rng
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
+from repro_torch.models import moe as MOE
+from repro_torch.models import xlstm as X
 
 
 def check_supported(cfg: ModelConfig, *, decode: bool = False) -> None:
-    """Refuse every config whose blocks the port does not have yet."""
-    unported = [f"{b.mixer}/{b.ffn} blocks" for b in cfg.cycle
-                if (b.mixer, b.ffn) != ("attn", "mlp")]
+    """Refuse every config with a part the port does not have yet."""
+    unported = []
     if cfg.is_encdec:
         unported.append("the encoder-decoder (cross-attention) path")
     if cfg.learned_pos:
@@ -66,18 +72,68 @@ def check_supported(cfg: ModelConfig, *, decode: bool = False) -> None:
 # init
 # ----------------------------------------------------------------------
 
-def _init_block(key, cfg: ModelConfig, device):
+class Mixer(NamedTuple):
+    """One mixer kind: ``init(key, cfg, device=)``, its full-sequence form
+    ``apply(p, h, cfg, causal)``, its decode cache ``cache(cfg, batch,
+    cache_len, lead, device)`` (``lead``: leading group axes) and its
+    one-token step ``decode(p, h, cache, pos, cfg)``, which updates the
+    cache in place."""
+    init: Callable
+    apply: Callable
+    cache: Callable
+    decode: Callable
+
+
+def _attn_decode(p, h, cache, pos, cfg):
+    return L.attention_decode(p, h, cache, pos, cfg)[0]
+
+
+def _recurrent(init, apply, cache, step) -> Mixer:
+    """A recurrent mixer, whose step returns its new state: copied into
+    the cache's slots."""
+    def decode(p, h, c, pos, cfg):
+        out, new = step(p, h, c, cfg)
+        for k, v in new.items():
+            c[k].copy_(v)
+        return out
+    return Mixer(init, lambda p, h, cfg, causal: apply(p, h, cfg),
+                 lambda cfg, b, n, lead, dev: cache(cfg, b, lead, device=dev),
+                 decode)
+
+
+MIXERS = {
+    "attn": Mixer(
+        L.init_attention,
+        lambda p, h, cfg, causal: L.attention_train(p, h, cfg,
+                                                    causal=causal),
+        lambda cfg, b, n, lead, dev: L.init_kv_cache(cfg, b, n, lead,
+                                                     device=dev),
+        _attn_decode),
+    "mamba": _recurrent(M.init_mamba, M.apply_mamba, M.init_mamba_cache,
+                        M.decode_mamba),
+    "mlstm": _recurrent(X.init_mlstm, X.apply_mlstm, X.init_mlstm_cache,
+                        X.decode_mlstm),
+    "slstm": _recurrent(X.init_slstm, X.apply_slstm, X.init_slstm_cache,
+                        X.decode_slstm),
+}
+
+
+def _init_block(key, cfg: ModelConfig, spec, device):
     ks = rng.split(key, 6)
     dt = cfg.dtype
-    return {
+    p = {
         "ln1": L.init_norm(ks[0], cfg.d_model, dt, cfg.norm_kind,
                            device=device),
-        "mixer": L.init_attention(ks[1], cfg, device=device),
-        "ln2": L.init_norm(ks[2], cfg.d_model, dt, cfg.norm_kind,
-                           device=device),
-        "ffn": L.init_mlp(ks[3], cfg.d_model, cfg.d_ff, dt, cfg.mlp_kind,
-                          device=device),
+        "mixer": MIXERS[spec.mixer].init(ks[1], cfg, device=device),
     }
+    if spec.ffn != "none":
+        p["ln2"] = L.init_norm(ks[2], cfg.d_model, dt, cfg.norm_kind,
+                               device=device)
+        p["ffn"] = (MOE.init_moe(ks[3], cfg, device=device)
+                    if spec.ffn == "moe"
+                    else L.init_mlp(ks[3], cfg.d_model, cfg.d_ff, dt,
+                                    cfg.mlp_kind, device=device))
+    return p
 
 
 def _stack(trees):
@@ -92,9 +148,10 @@ def _init_block_stack(key, cfg: ModelConfig, device):
     num_groups; group g of position ``pos`` draws from
     ``split(fold_in(key, pos), num_groups)[g]``."""
     blocks = []
-    for pos in range(cfg.cycle_len):
+    for pos, spec in enumerate(cfg.cycle):
         keys = rng.split(rng.fold_in(key, pos), cfg.num_groups)
-        blocks.append(_stack([_init_block(k, cfg, device) for k in keys]))
+        blocks.append(_stack([_init_block(k, cfg, spec, device)
+                              for k in keys]))
     return tuple(blocks)
 
 
@@ -131,18 +188,25 @@ def _group(tree, g: int):
 # forward (prefill)
 # ----------------------------------------------------------------------
 
-def _mixer_half(bp, x, cfg: ModelConfig, causal: bool):
+def _mixer_half(bp, x, cfg: ModelConfig, spec, causal: bool):
     h = L.apply_norm(bp["ln1"], x, cfg.norm_eps)
-    return x + L.attention_train(bp["mixer"], h, cfg, causal=causal)
+    return x + MIXERS[spec.mixer].apply(bp["mixer"], h, cfg, causal)
 
 
-def _ffn_half(bp, x, cfg: ModelConfig):
+def _ffn_half(bp, x, cfg: ModelConfig, spec):
+    """(x + FFN(x), the block's MoE auxiliary loss or 0.0)."""
     h = L.apply_norm(bp["ln2"], x, cfg.norm_eps)
-    return x + L.apply_mlp(bp["ffn"], h, cfg)
+    if spec.ffn == "moe":
+        y, aux = MOE.apply_moe(bp["ffn"], h, cfg)
+        return x + y, aux["moe_aux_loss"]
+    return x + L.apply_mlp(bp["ffn"], h, cfg), 0.0
 
 
-def _apply_block(bp, x, cfg: ModelConfig, *, causal: bool):
-    return _ffn_half(bp, _mixer_half(bp, x, cfg, causal), cfg)
+def _apply_block(bp, x, cfg: ModelConfig, spec, *, causal: bool):
+    x = _mixer_half(bp, x, cfg, spec, causal)
+    if spec.ffn == "none":
+        return x, 0.0
+    return _ffn_half(bp, x, cfg, spec)
 
 
 def _remat(fn, *args):
@@ -152,7 +216,7 @@ def _remat(fn, *args):
 def _run_stack(blocks, x, cfg: ModelConfig, *, causal: bool):
     """Apply the grouped stack: groups in order, and within a group the
     cycle's positions in order; each block under remat with
-    ``cfg.remat``."""
+    ``cfg.remat``.  Returns (x, the blocks' summed MoE auxiliary loss)."""
     if cfg.remat:
         if torch._C._functorch.peek_interpreter_stack() is not None:
             raise NotImplementedError(
@@ -161,23 +225,28 @@ def _run_stack(blocks, x, cfg: ModelConfig, *, causal: bool):
                 "torch.func); use cfg.replace(remat=False)")
         if cfg.remat_policy not in ("nothing", "save_block_out"):
             raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+    aux_sum = 0.0
     for g in range(cfg.num_groups):
-        for pos in range(cfg.cycle_len):
+        for pos, spec in enumerate(cfg.cycle):
             bp = _group(blocks[pos], g)
             if not cfg.remat:
-                x = _apply_block(bp, x, cfg, causal=causal)
+                x, aux = _apply_block(bp, x, cfg, spec, causal=causal)
             elif cfg.remat_policy == "nothing":
-                x = _remat(lambda b, t: _apply_block(b, t, cfg,
-                                                     causal=causal), bp, x)
+                # bound now: the backward recomputes after the loop moved on
+                x, aux = _remat(partial(_apply_block, cfg=cfg, spec=spec,
+                                        causal=causal), bp, x)
             else:
-                x = _remat(_mixer_half, bp, x, cfg, causal)
-                x = _remat(_ffn_half, bp, x, cfg)
-    return x
+                x, aux = _remat(_mixer_half, bp, x, cfg, spec, causal), 0.0
+                if spec.ffn != "none":
+                    x, aux = _remat(_ffn_half, bp, x, cfg, spec)
+            aux_sum = aux_sum + aux
+    return x, aux_sum
 
 
 def forward(cfg: ModelConfig, params, tokens, *,
             prefix_embeddings: Optional[torch.Tensor] = None):
-    """Returns the final hidden states (B, S, D).  ``prefix_embeddings``
+    """Returns (the final hidden states (B, S, D), the summed MoE
+    auxiliary loss, 0.0 without MoE blocks).  ``prefix_embeddings``
     (B, P, D) take the place of the first P token embeddings (the
     multimodal prefix)."""
     check_supported(cfg)
@@ -185,26 +254,26 @@ def forward(cfg: ModelConfig, params, tokens, *,
     if prefix_embeddings is not None:
         P = prefix_embeddings.shape[1]
         x = torch.cat([prefix_embeddings.to(x.dtype), x[:, P:]], dim=1)
-    x = _run_stack(params["blocks"], x, cfg, causal=True)
-    return L.apply_norm(params["final_norm"], x, cfg.norm_eps)
+    x, aux = _run_stack(params["blocks"], x, cfg, causal=True)
+    return L.apply_norm(params["final_norm"], x, cfg.norm_eps), aux
 
 
 def loss_fn(cfg: ModelConfig, params, batch, *,
             aux_weight: float = 0.01) -> torch.Tensor:
     """batch: dict(tokens, labels, mask[, prefix_embeddings]).  The mean
-    masked next-token NLL plus ``aux_weight`` times the MoE auxiliary
-    loss, which is 0.0 on the dense stack (added all the same, as the
+    masked next-token NLL plus ``aux_weight`` times the summed MoE
+    auxiliary loss (0.0 without MoE blocks, added all the same, as the
     JAX package adds it)."""
-    x = forward(cfg, params, batch["tokens"],
-                prefix_embeddings=batch.get("prefix_embeddings"))
-    aux = torch.zeros((), device=x.device)
+    x, aux = forward(cfg, params, batch["tokens"],
+                     prefix_embeddings=batch.get("prefix_embeddings"))
     nll = L.chunked_softmax_xent(None, x, lm_head_weight(cfg, params),
                                  batch["labels"], batch["mask"])
     return nll + aux_weight * aux
 
 
 def logits_fn(cfg: ModelConfig, params, tokens, **kw):
-    return forward(cfg, params, tokens, **kw) @ lm_head_weight(cfg, params)
+    return forward(cfg, params, tokens, **kw)[0] @ lm_head_weight(cfg,
+                                                                   params)
 
 
 # ----------------------------------------------------------------------
@@ -267,14 +336,14 @@ def nested_params(flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
 
 def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
                       device="cuda"):
-    """Self-attention caches, one per cycle position, stacked over the
-    groups."""
+    """Self-attention / recurrent caches, one per cycle position, stacked
+    over the groups."""
     check_supported(cfg, decode=True)
     device = resolve_device(device)
     return {"self": tuple(
-        L.init_kv_cache(cfg, batch, cache_len, (cfg.num_groups,),
-                        device=device)
-        for _ in cfg.cycle)}
+        MIXERS[spec.mixer].cache(cfg, batch, cache_len,
+                                 (cfg.num_groups,), device)
+        for spec in cfg.cycle)}
 
 
 def decode_step(cfg: ModelConfig, params, state, tokens, pos):
@@ -282,19 +351,24 @@ def decode_step(cfg: ModelConfig, params, state, tokens, pos):
 
     tokens: (B,) current token ids; pos: the position (int).  Returns
     (logits (B, V) float32, state); the caches in ``state`` are updated in
-    place."""
+    place (a recurrent mixer's new state is copied into its slot)."""
     check_supported(cfg, decode=True)
     pos = int(pos)
     x = params["tok_embed"][tokens][:, None]              # (B,1,D)
     for g in range(cfg.num_groups):
-        for p_idx in range(cfg.cycle_len):
+        for p_idx, spec in enumerate(cfg.cycle):
             bp = _group(params["blocks"][p_idx], g)
             cache = _group(state["self"][p_idx], g)
             h = L.apply_norm(bp["ln1"], x, cfg.norm_eps)
-            mixed, _ = L.attention_decode(bp["mixer"], h, cache, pos, cfg)
-            x = x + mixed
-            h = L.apply_norm(bp["ln2"], x, cfg.norm_eps)
-            x = x + L.apply_mlp(bp["ffn"], h)
+            x = x + MIXERS[spec.mixer].decode(bp["mixer"], h, cache, pos,
+                                              cfg)
+            if spec.ffn != "none":
+                h = L.apply_norm(bp["ln2"], x, cfg.norm_eps)
+                if spec.ffn == "moe":
+                    y = MOE.moe_forward(bp["ffn"], h, cfg)[0]
+                else:
+                    y = L.apply_mlp(bp["ffn"], h)
+                x = x + y
     x = L.apply_norm(params["final_norm"], x, cfg.norm_eps)
     logits = (x[:, 0] @ lm_head_weight(cfg, params)).float()
     return logits, state

@@ -1,0 +1,244 @@
+"""xLSTM mixers: mLSTM (matrix memory, chunkwise parallel) and sLSTM
+(scalar memory, strictly sequential) [arXiv:2405.04517]
+(``repro.models.xlstm``).
+
+The mLSTM's parallel form is chunkwise: a loop over sequence chunks of
+256 carrying the (C, n, m) matrix-memory state, with a quadratic part
+inside each chunk.  The forget gates' log-cumsum inside a chunk runs in
+XLA's order (``rng.cumsum``), so the decays round as in the reference.
+The sLSTM is a Python loop over time, the reference's ``lax.scan``: each
+step depends on the last through the recurrent matrices.  Every function
+returns new tensors; none writes in place.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+import torch.nn.functional as Fn
+
+from repro_torch import rng
+from repro_torch.models.layers import dense_init, torch_dtype
+from repro_torch.models.mamba import softplus
+
+NEG = -1e30                  # the reference's "minus infinity"
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``: ``-softplus(-x)``."""
+    return -softplus(-x)
+
+
+# ----------------------------------------------------------------------
+# mLSTM
+# ----------------------------------------------------------------------
+
+def init_mlstm(key, cfg, *, device="cuda") -> Dict[str, torch.Tensor]:
+    d = cfg.d_model
+    h = cfg.xlstm_num_heads
+    dt = torch_dtype(cfg.dtype)
+    ks = rng.split(key, 8)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "wq": dense_init(ks[0], (d, d), dt, device=device),
+        "wk": dense_init(ks[1], (d, d), dt, device=device),
+        "wv": dense_init(ks[2], (d, d), dt, device=device),
+        "wz": dense_init(ks[3], (d, d), dt, device=device),  # output gate
+        "wo": dense_init(ks[4], (d, d), dt, device=device),
+        "wi": dense_init(ks[5], (d, h), torch.float32, device=device),
+        "wf": dense_init(ks[6], (d, h), torch.float32, device=device),
+        "bi": torch.zeros((h,), **f32),
+        "bf": torch.full((h,), 3.0, **f32),     # open forget gates at init
+    }
+
+
+def _mlstm_qkv(p, x, h):
+    B, S, d = x.shape
+    dh = d // h
+
+    def heads(t):
+        return t.reshape(B, S, h, dh).transpose(1, 2)    # (B,h,S,dh)
+
+    q, k, v = heads(x @ p["wq"]), heads(x @ p["wk"]), heads(x @ p["wv"])
+    li = (x.float() @ p["wi"] + p["bi"]).transpose(1, 2)          # (B,h,S)
+    lf = log_sigmoid(x.float() @ p["wf"] + p["bf"]).transpose(1, 2)
+    return q, k, v, li, lf
+
+
+def apply_mlstm(p, x, cfg, *, chunk: int = 256):
+    """Chunkwise-parallel mLSTM. x: (B, S, D) -> (B, S, D)."""
+    B, S, d = x.shape
+    h = cfg.xlstm_num_heads
+    dh = d // h
+    q, k, v, li, lf = _mlstm_qkv(p, x, h)          # q: (B,h,S,dh)
+    scale = 1.0 / math.sqrt(dh)
+
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    q, k, v = (Fn.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
+    li = Fn.pad(li, (0, pad), value=NEG)           # padded i-gate: no write
+    lf = Fn.pad(lf, (0, pad))
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))
+
+    C = torch.zeros((B, h, dh, dh), dtype=torch.float32, device=x.device)
+    n = torch.zeros((B, h, dh), dtype=torch.float32, device=x.device)
+    m = torch.zeros((B, h), dtype=torch.float32, device=x.device)
+    outs = []
+    for s0 in range(0, S + pad, chunk):
+        sl = slice(s0, s0 + chunk)
+        ii, ff = li[..., sl], lf[..., sl]
+        F = rng.cumsum(ff)                         # inclusive log decay
+        Ftot = F[..., -1]
+        # state written at s decays by F[t] - F[s]; write gain ii[s]
+        ldecay = F[..., :, None] - F[..., None, :] + ii[..., None, :]
+        ldecay = torch.where(tri, ldecay, NEG)     # causal, s <= t
+        linter = F + m[..., None]                  # decay of carried state
+        m_t = torch.maximum(linter, ldecay.amax(-1))          # (B,h,chunk)
+        wintra = torch.exp(ldecay - m_t[..., None])
+        winter = torch.exp(linter - m_t)
+
+        qf = q[:, :, sl].float() * scale
+        kf, vf = k[:, :, sl].float(), v[:, :, sl].float()
+        s_qk = torch.einsum("bhtd,bhsd->bhts", qf, kf) * wintra
+        num = torch.einsum("bhts,bhsv->bhtv", s_qk, vf) \
+            + torch.einsum("bhtd,bhdv->bhtv", qf, C) * winter[..., None]
+        nvec = torch.einsum("bhts,bhsd->bhtd", wintra, kf) \
+            + n[..., None, :] * winter[..., None]
+        den = torch.einsum("bhtd,bhtd->bht", qf, nvec).abs()
+        outs.append(num / torch.maximum(den, torch.exp(-m_t))[..., None])
+
+        # ---- state update to the end of the chunk ----
+        m_new = torch.maximum(Ftot + m, (Ftot[..., None] - F + ii).amax(-1))
+        wstate = torch.exp(Ftot[..., None] - F + ii - m_new[..., None])
+        carry = torch.exp(Ftot + m - m_new)
+        C = C * carry[..., None, None] \
+            + torch.einsum("bhs,bhsd,bhsv->bhdv", wstate, kf, vf)
+        n = n * carry[..., None] + torch.einsum("bhs,bhsd->bhd", wstate, kf)
+        m = m_new
+    out = torch.cat(outs, dim=2)[:, :, :S]
+    out = out.transpose(1, 2).reshape(B, S, d).to(x.dtype)
+    out = out * Fn.silu(x @ p["wz"])
+    return out @ p["wo"]
+
+
+def init_mlstm_cache(cfg, batch, layers_leading=(), *, device="cuda"):
+    d, h = cfg.d_model, cfg.xlstm_num_heads
+    dh = d // h
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "C": torch.zeros((*layers_leading, batch, h, dh, dh), **f32),
+        "n": torch.zeros((*layers_leading, batch, h, dh), **f32),
+        "m": torch.zeros((*layers_leading, batch, h), **f32),
+    }
+
+
+def decode_mlstm(p, x, cache, cfg):
+    """One-token mLSTM step. x: (B, 1, D) -> (out, new_cache)."""
+    B, _, d = x.shape
+    h = cfg.xlstm_num_heads
+    dh = d // h
+    q, k, v, li, lf = _mlstm_qkv(p, x, h)          # (B,h,1,dh), (B,h,1)
+    q, k, v = q[:, :, 0], k[:, :, 0], v[:, :, 0]
+    li, lf = li[..., 0], lf[..., 0]                # (B,h)
+    C, n, m = cache["C"], cache["n"], cache["m"]
+    m_new = torch.maximum(lf + m, li)
+    fw = torch.exp(lf + m - m_new)
+    iw = torch.exp(li - m_new)
+    kf, vf = k.float(), v.float()
+    C_new = C * fw[..., None, None] + iw[..., None, None] \
+        * kf[..., :, None] * vf[..., None, :]
+    n_new = n * fw[..., None] + iw[..., None] * kf
+    qf = q.float() / math.sqrt(dh)
+    num = torch.einsum("bhd,bhdv->bhv", qf, C_new)
+    den = torch.einsum("bhd,bhd->bh", qf, n_new).abs()
+    out = num / torch.maximum(den, torch.exp(-m_new))[..., None]
+    out = out.reshape(B, 1, d).to(x.dtype)
+    out = out * Fn.silu(x @ p["wz"])
+    return out @ p["wo"], {"C": C_new, "n": n_new, "m": m_new}
+
+
+# ----------------------------------------------------------------------
+# sLSTM
+# ----------------------------------------------------------------------
+
+GATES = ("z", "i", "f", "o")
+
+
+def init_slstm(key, cfg, *, device="cuda") -> Dict[str, torch.Tensor]:
+    d = cfg.d_model
+    h = cfg.xlstm_num_heads
+    dh = d // h
+    dt = torch_dtype(cfg.dtype)
+    ks = rng.split(key, 9)
+    p = {"wo_proj": dense_init(ks[8], (d, d), dt, device=device)}
+    for i, g in enumerate(GATES):
+        p[f"w{g}"] = dense_init(ks[i], (d, d), dt, device=device)
+        # per-head block-diagonal recurrent matrix
+        p[f"r{g}"] = dense_init(ks[4 + i], (h, dh, dh), torch.float32,
+                                scale=0.5, device=device)
+        p[f"b{g}"] = torch.full((d,), 3.0 if g == "f" else 0.0,
+                                dtype=torch.float32, device=device)
+    return p
+
+
+def _slstm_cell(p, xg, state):
+    """One time step. xg: dict of (B, H, dh) pre-activations from W x."""
+    c, n, hprev, m = state                          # (B,H,dh) each
+
+    def rec(g):
+        return torch.einsum("bhe,hed->bhd", hprev, p[f"r{g}"])
+
+    zt = torch.tanh(xg["z"] + rec("z"))
+    it = xg["i"] + rec("i")
+    ft = xg["f"] + rec("f")
+    ot = torch.sigmoid(xg["o"] + rec("o"))
+    m_new = torch.maximum(ft + m, it)
+    iw = torch.exp(it - m_new)
+    fw = torch.exp(ft + m - m_new)
+    c_new = fw * c + iw * zt
+    n_new = fw * n + iw
+    h_new = ot * c_new / torch.clamp(n_new, min=1e-6)
+    return (c_new, n_new, h_new, m_new), h_new
+
+
+def _slstm_pre(p, x, h):
+    """Input pre-activations for all gates: (B, S, H, dh) each."""
+    B, S, d = x.shape
+    dh = d // h
+    return {g: (x.float() @ p[f"w{g}"].float() + p[f"b{g}"]).reshape(
+        B, S, h, dh) for g in GATES}
+
+
+def apply_slstm(p, x, cfg):
+    """Sequential sLSTM over the full sequence. x: (B, S, D)."""
+    B, S, d = x.shape
+    h = cfg.xlstm_num_heads
+    pre = _slstm_pre(p, x, h)
+    z0 = torch.zeros((B, h, d // h), dtype=torch.float32, device=x.device)
+    state = (z0, z0, z0, z0)
+    hs = []
+    for t in range(S):
+        state, ht = _slstm_cell(p, {g: pre[g][:, t] for g in GATES}, state)
+        hs.append(ht)
+    out = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
+    return out @ p["wo_proj"]
+
+
+def init_slstm_cache(cfg, batch, layers_leading=(), *, device="cuda"):
+    d, h = cfg.d_model, cfg.xlstm_num_heads
+    shape = (*layers_leading, batch, h, d // h)
+    return {s: torch.zeros(shape, dtype=torch.float32, device=device)
+            for s in ("c", "n", "h", "m")}
+
+
+def decode_slstm(p, x, cache, cfg):
+    """One-token sLSTM step. x: (B, 1, D) -> (out, new_cache)."""
+    B, _, d = x.shape
+    pre = _slstm_pre(p, x, cfg.xlstm_num_heads)
+    state = (cache["c"], cache["n"], cache["h"], cache["m"])
+    (c, n, hh, m), hnew = _slstm_cell(p, {g: pre[g][:, 0] for g in GATES},
+                                      state)
+    out = hnew.reshape(B, 1, d).to(x.dtype) @ p["wo_proj"]
+    return out, {"c": c, "n": n, "h": hh, "m": m}

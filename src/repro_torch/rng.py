@@ -131,20 +131,30 @@ def fold_in_rows(keys: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     return torch.stack([a, b], dim=-1)
 
 
-# flat elements per piece of a large draw on the CPU (see _by_pieces)
-_CPU_PIECE = 1 << 16
+# flat elements per piece of a large draw: cache-sized on the CPU, and
+# on the card small enough that the hash's int64 words and the float64
+# erfinv of a multi-GB weight stay a few hundred MB (see _by_pieces)
+_PIECE = {"cpu": 1 << 16, "cuda": 1 << 24}
 
 
 def _by_pieces(n: int, device: torch.device, fn) -> torch.Tensor:
-    """``fn(start, stop)`` over the flat range [0, n), concatenated.  On
-    the CPU a large draw is taken in cache-sized pieces: the hash is a
-    hundred in-place passes, which over a whole multi-MB tensor are bound
-    by memory (2.5x slower for a (4096, 256) slab).  Elementwise in the
-    flat counter, so the values are the same either way."""
-    if device.type != "cpu" or n <= _CPU_PIECE:
-        return fn(0, n)
-    return torch.cat([fn(s, min(s + _CPU_PIECE, n))
-                      for s in range(0, n, _CPU_PIECE)])
+    """``fn(start, stop)`` over the flat range [0, n), written piece by
+    piece into one (n,) tensor.  On the CPU the pieces are
+    cache-sized: the hash is a hundred in-place passes, which over a whole
+    multi-MB tensor are bound by memory (2.5x slower for a (4096, 256)
+    slab).  On the card they bound the temporaries: a draw of 940 M
+    elements would otherwise hold several 7.5 GB int64 words at once.
+    Elementwise in the flat counter, so the values are the same either
+    way."""
+    piece = _PIECE.get(device.type, _PIECE["cuda"])
+    first = fn(0, min(piece, n))
+    if n <= piece:
+        return first
+    out = torch.empty((n,), dtype=first.dtype, device=device)
+    out[:piece] = first
+    for s in range(piece, n, piece):
+        out[s:min(s + piece, n)] = fn(s, min(s + piece, n))
+    return out
 
 
 def _bits_flat(k1: int, k2: int, start: int, stop: int, device
@@ -301,45 +311,55 @@ def normal(key: torch.Tensor, shape: Shape = (), device="cuda"
 def truncated_normal(key: torch.Tensor, lower: float, upper: float,
                      shape: Shape = (), device="cuda") -> torch.Tensor:
     """``jax.random.truncated_normal`` in float32, clamped to the open
-    interval (lower, upper)."""
+    interval (lower, upper); drawn piece by piece (:func:`_by_pieces`)."""
     device = resolve_device(device)
+    shape = _shape(shape)
     sqrt2 = torch.tensor(_SQRT2, device=device)
     lo = torch.tensor(lower, dtype=torch.float32, device=device)
     hi = torch.tensor(upper, dtype=torch.float32, device=device)
     a = torch.erf(lo / sqrt2)
     b = torch.erf(hi / sqrt2)
-    out = sqrt2 * erfinv(uniform(key, shape, a, b, device))
     inf = torch.tensor(math.inf, device=device)
-    return torch.clamp(out, torch.nextafter(lo, inf),
-                       torch.nextafter(hi, -inf))
+    lo_open, hi_open = torch.nextafter(lo, inf), torch.nextafter(hi, -inf)
+    k1, k2 = _key_words(key)
+
+    def piece(s, e):
+        u = _uniform_from_bits(_bits_flat(k1, k2, s, e, device), a, b,
+                               device)
+        return torch.clamp(sqrt2 * erfinv(u), lo_open, hi_open)
+
+    return _by_pieces(math.prod(shape), device, piece).reshape(shape)
 
 
 _SCAN_BLOCK = 16
 
 
 def cumsum(x: torch.Tensor) -> torch.Tensor:
-    """1-D float cumulative sum in the order XLA's CPU backend sums
-    ``jnp.cumsum``: blocks of 16 each summed in order, the block totals
-    scanned the same way, and each block's exclusive prefix added.
-    ``torch.cumsum`` rounds in another order on the CPU and in a
+    """Float cumulative sum along the last axis in the order XLA's CPU
+    backend sums ``jnp.cumsum``: blocks of 16 each summed in order, the
+    block totals scanned the same way, and each block's exclusive prefix
+    added.  ``torch.cumsum`` rounds in another order on the CPU and in a
     timing-dependent one on CUDA, which moves ``choice``'s pick at large
-    N; this one is bit-identical on both and run to run."""
-    n = x.shape[0]
+    N; this one is bit-identical on both and run to run.  Out of place,
+    so it runs under ``torch.func`` transforms."""
+    n = x.shape[-1]
+    lead = x.shape[:-1]
     if n <= _SCAN_BLOCK:
-        blocks = x.reshape(1, n)
+        blocks = x.reshape(*lead, 1, n)
     else:
         nb = -(-n // _SCAN_BLOCK)
         blocks = torch.nn.functional.pad(
-            x, (0, nb * _SCAN_BLOCK - n)).reshape(nb, _SCAN_BLOCK)
-    cols = [blocks[:, 0]]
-    for j in range(1, blocks.shape[1]):
-        cols.append(cols[-1] + blocks[:, j])
-    inner = torch.stack(cols, dim=1)
+            x, (0, nb * _SCAN_BLOCK - n)).reshape(*lead, nb, _SCAN_BLOCK)
+    cols = [blocks[..., 0]]
+    for j in range(1, blocks.shape[-1]):
+        cols.append(cols[-1] + blocks[..., j])
+    inner = torch.stack(cols, dim=-1)
     if n <= _SCAN_BLOCK:
-        return inner.reshape(n)
-    outer = cumsum(inner[:, -1])
-    before = torch.cat([torch.zeros_like(outer[:1]), outer[:-1]])
-    return (inner + before[:, None]).reshape(-1)[:n]
+        return inner.reshape(*lead, n)
+    outer = cumsum(inner[..., -1])
+    before = torch.cat([torch.zeros_like(outer[..., :1]), outer[..., :-1]],
+                       dim=-1)
+    return (inner + before[..., None]).reshape(*lead, -1)[..., :n]
 
 
 def permutation(key: torch.Tensor, n: int, device="cuda") -> torch.Tensor:

@@ -1,8 +1,9 @@
 """The CUDA kernels (lloyd_step, kmeans_assign, flash_attention) against
 their plain versions on the card, the batched cohort runtimes on the
-card against the same runtimes on the CPU, and the LM training path's
+card against the same runtimes on the CPU, the LM training path's
 two hand-written backwards and transformer FL on the card against the
-CPU.
+CPU, and the MoE, Mamba and xLSTM blocks and their archs' decode on the
+card against the CPU.
 
 Marked ``gpu``: it needs a CUDA device and nvcc, and skips elsewhere
 (the decision is made inside the fixture, never at import).  Run it on a
@@ -588,3 +589,67 @@ def test_transformer_fl_on_cuda_matches_cpu(cuda, runtime):
     assert got["selected"] == want["selected"]
     np.testing.assert_allclose(got["test_loss"], want["test_loss"],
                                rtol=1e-5, atol=1e-5)
+
+
+# the MoE, Mamba and xLSTM blocks on the card against the CPU, at the
+# smoke widths, float32: outputs within 1e-4 of the largest (the card
+# sums in other orders; TF32 is off), the MoE routing identical
+def _block_inputs(arch, kind, seed):
+    from repro_torch import rng
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import mamba, moe, xlstm
+    cfg = get_smoke_config(arch)
+    init = {"moe": moe.init_moe, "mamba": mamba.init_mamba,
+            "mlstm": xlstm.init_mlstm, "slstm": xlstm.init_slstm}[kind]
+    p = init(rng.PRNGKey(seed), cfg, device="cpu")
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return cfg, p, torch.randn(2, 37, cfg.d_model, generator=g)
+
+
+def _close(got, want, rel=1e-4):
+    got, want = got.float().cpu(), want.float()
+    assert float((got - want).abs().max()) <= rel * float(want.abs().max())
+
+
+@pytest.mark.parametrize("arch,kind", [
+    ("granite-moe-3b-a800m", "moe"), ("jamba-v0.1-52b", "mamba"),
+    ("xlstm-1.3b", "mlstm"), ("xlstm-1.3b", "slstm")])
+def test_new_block_on_cuda_matches_cpu(cuda, arch, kind):
+    from repro_torch.models import mamba, moe, xlstm
+    cfg, p, x = _block_inputs(arch, kind, 3)
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    if kind == "moe":
+        want, aux = moe.apply_moe(p, x, cfg)
+        got, aux_c = moe.apply_moe(pc, x.to(cuda), cfg)
+        xt = x.reshape(-1, cfg.d_model)
+        ids = moe.top_k(moe.router_probs(p, xt), cfg.experts_per_token)[1]
+        ids_c = moe.top_k(moe.router_probs(pc, xt.to(cuda)),
+                          cfg.experts_per_token)[1]
+        assert torch.equal(ids_c.cpu(), ids)
+        assert float(aux_c["moe_drop_frac"]) == float(aux["moe_drop_frac"])
+    else:
+        apply = {"mamba": mamba.apply_mamba, "mlstm": xlstm.apply_mlstm,
+                 "slstm": xlstm.apply_slstm}[kind]
+        want, got = apply(p, x, cfg), apply(pc, x.to(cuda), cfg)
+    assert got.device.type == "cuda"
+    _close(got, want)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "jamba-v0.1-52b",
+                                  "xlstm-1.3b"])
+def test_zoo_decode_on_cuda_matches_cpu(cuda, arch):
+    """Teacher-forced decode of the smoke config on both devices."""
+    from repro_torch import rng
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import model as MD
+    cfg = get_smoke_config(arch)
+    params = MD.init_params(cfg, rng.PRNGKey(0), "cpu")
+    pc = MD.nested_params({k: v.to(cuda) for k, v in
+                           MD.flatten_params(params).items()})
+    toks = rng.randint(rng.PRNGKey(1), (2, 12), 0, cfg.vocab_size, "cpu")
+    st = MD.init_decode_state(cfg, 2, 12, "cpu")
+    st_c = MD.init_decode_state(cfg, 2, 12, cuda)
+    for t in range(12):
+        lg, st = MD.decode_step(cfg, params, st, toks[:, t], t)
+        lg_c, st_c = MD.decode_step(cfg, pc, st_c, toks[:, t].to(cuda), t)
+        _close(lg_c, lg)

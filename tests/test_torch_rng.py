@@ -103,3 +103,31 @@ def test_choice_with_p_same_index(seed):
                                      p=jnp.asarray(p)))
         got = int(rng.choice(rng.fold_in(kt, f), 50, p=torch.tensor(p)))
         assert got == want
+
+
+@pytest.mark.parametrize("draw", ["bits", "normal", "truncated_normal"])
+def test_draws_in_small_pieces_are_bit_identical(monkeypatch, draw):
+    """A large draw goes through _by_pieces on every device; forcing
+    pieces of 1,000 elements (one ragged) gives the whole draw's values
+    bit for bit."""
+    key, shape = rng.PRNGKey(7), (37, 211)
+    fns = {"bits": lambda: rng.bits(key, shape, "cpu"),
+           "normal": lambda: rng.normal(key, shape, "cpu"),
+           "truncated_normal": lambda: rng.truncated_normal(
+               key, -2.0, 2.0, shape, "cpu")}
+    monkeypatch.setitem(rng._PIECE, "cpu", 1 << 30)
+    whole = fns[draw]()
+    monkeypatch.setitem(rng._PIECE, "cpu", 1000)
+    pieces = fns[draw]()
+    assert pieces.shape == whole.shape and pieces.dtype == whole.dtype
+    assert torch.equal(pieces, whole)
+
+
+@pytest.mark.parametrize("n", [1, 16, 17, 31, 256, 300])
+def test_cumsum_along_last_axis_bit_identical(n):
+    """rng.cumsum sums each row in XLA's order, for N-d inputs too."""
+    x = np.random.default_rng(n).standard_normal((2, 3, n)).astype(
+        np.float32) * 10
+    want = np.asarray(jax.jit(lambda a: jnp.cumsum(a, axis=-1))(
+        jnp.asarray(x)))
+    np.testing.assert_array_equal(rng.cumsum(torch.tensor(x)).numpy(), want)

@@ -1,5 +1,5 @@
 """``python -m repro_torch.launch.train --mode transformer`` against the
-JAX CLI on the CPU, and the archs and runtimes it refuses.
+JAX CLI on the CPU, and the archs and flags it refuses.
 
 The CLI run (``--clients 50 --rounds 2``: 10 FL clients at qwen2-0.5b's
 smoke config) must select the JAX CLI's clients in every round, with
@@ -59,10 +59,10 @@ def test_cli_matches_jax_cli(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--arch", "granite-moe-3b-a800m"],           # MoE blocks
-    ["--arch", "jamba-v0.1-52b"],                 # Mamba and MoE blocks
-    ["--arch", "xlstm-1.3b"],                     # sLSTM/mLSTM blocks
-    ["--arch", "whisper-tiny"],                   # encoder-decoder
+    ["--arch", "whisper-tiny", "--runtime", "vectorized"],  # encoder-
+    ["--arch", "whisper-tiny", "--runtime", "device"],      # decoder
+    ["--cohort-devices", "2"],
+    ["--arch", "whisper-tiny"],
     ["--runtime", "sharded"],
 ])
 def test_unported_transformer_flags_raise(flag):
