@@ -22,7 +22,11 @@
    TFLOP/s (the useful operations over its time), SDPA's share of the
    same error bound and, for bf16, the share of the plain version with p
    rounded once to bf16 before P.V (a single bf16 P, which the kernel
-   avoids by carrying p as two bf16 terms).
+   avoids by carrying p as two bf16 terms).  The flash shapes include
+   Sq != Sk, a bf16 q against float32 K/V (the float32 kernel) and rows
+   that see no key (the Pallas kernel's sum v / Sk_pad).  Then one
+   2^20-element ``rng.normal`` draw on the card against the CPU: the
+   count of elements that differ is printed.
 4. Paper path: sets every launch count to 0, runs the port's
    ``--mode paper`` with the reference defaults (100 clients, 10
    clusters, 12,000-image pool, the CNN-MNIST, seed 0) for 3 rounds on
@@ -115,7 +119,7 @@
    from ``init_params(cfg, PRNGKey(0))``) with ``attn_impl="pallas"``:
    ``logits_fn`` prefill of 4,096 tokens, counts reset before and read
    after (24 flash_attention launches), held against the plain
-   ``attn_impl="naive"`` path; teacher-forced ``decode_step`` over 1,536
+   ``attn_impl="naive"`` path; teacher-forced ``decode_step`` over 1,025
    tokens held against the kernel prefill; and ``serve`` of 4 x 32
    tokens, whose ids must be the argmax of the logits that made them.
 13. Transformer path (run before the selection path): ``--mode
@@ -129,7 +133,7 @@
    energy std within TF_LOSS_TOL / TF_ACC_TOL (TRANSFORMER_REFERENCE,
    written by tools/record_transformer_reference.py); stage-1 seconds,
    seconds per round and the ``cohort/train`` share per run.
-14. Full-width train step (after the serving path): ``make_train_step``
+14. Full-width train step (after the examples path): ``make_train_step``
    on qwen2-0.5b's full CONFIG (24 layers, bf16, remat, chunked
    attention) at B 2, S 4,096 for 3 SGD steps at lr 1e-3 on one seeded
    batch: the loss finite and falling; s a step, tokens/s,
@@ -165,6 +169,28 @@
    kernel prefill of the same tokens; for xlstm every block's 128
    decode steps against its full-sequence form (ZOO_SERVING says why
    block by block).
+17. Whisper serving path (after the zoo serving path): whisper-tiny's
+   CONFIG (4 encoder and 4 decoder layers, bf16, ``attn_impl="pallas"``)
+   over WHISPER_CLIPS clips of the serve CLI's float32 frames: init;
+   ``encode`` with counts reset before and read after (4
+   flash_attention launches through the float32 kernel, the float32
+   frames promoting the encoder), warm encode and cross-cache seconds;
+   ``serve`` of 4 + 444 tokens (decode seconds a step, tokens/s, peak
+   memory); a teacher-forced 448-token ``logits_fn`` against decode
+   (every position within LOGITS_REL_TOL).  Then the float32 model held
+   to the JAX package's (WHISPER_REFERENCE, tools/record_whisper_
+   reference.py): the serve CLI's ids at batch 2 exactly, and a
+   64-token forward's argmax, largest logit and log-sum-exp.
+18. VLM serving path: phi-3-vision-4.2b's CONFIG (32 layers, bf16,
+   ``"pallas"``): init; a 4,096-token prefill whose first 256 slots are
+   seeded prefix embeddings (32 flash_attention launches at hd 96) held
+   to the naive prefill; 256 decode steps held to a prefix-free forward
+   (decoding never reads the prefix, in either package); a 4 x (16 +
+   32) serve replayed.
+19. Examples path: the four examples/*_torch.py on the card, each a
+   subprocess (EXAMPLE_RUNS, all started together; scheme_comparison at
+   5 rounds, serve_decode also on whisper-tiny); each must exit 0 and
+   prints its ``lloyd_step`` launches, which the kernels line adds.
 
 It prints one JSON line with the kernels' numbers and, last, the JSON
 status line.  ``--profile`` adds a torch.profiler pass before them:
@@ -492,24 +518,48 @@ SELECTION_CLIENTS = 1_000_000
 SELECTION_ARGS = ["--mode", "selection", "--clients", str(SELECTION_CLIENTS),
                   "--rounds", "100", "--quiet"]
 SELECTION_CHECK_ROUNDS = 10
-# (label, B, S, H, hd, dtype, causal, window); "qwen2" is the shape
-# qwen2-0.5b's prefill of 4,096 tokens gives the kernel (14 heads after
-# the GQA expansion), "window" starcoder2-3b's sliding window at 8,192
-# tokens, "phi3v" phi-3-vision's head_dim 96 (32 heads) at 4,096 tokens,
-# "ragged" a length off the 64-key tiles with head_dim 96 in fp32 (the
-# CUDA-core instantiation), "hd28" qwen2-0.5b's smoke config (4 heads of
-# head_dim 28, which the wrapper zero-pads to 32) at 2,048 tokens,
-# "granite" and "jamba" the zoo serving path's 4,096-token prefills
-# (granite-moe: 24 heads of 64 after the GQA 24:8 expansion; jamba: 32
-# heads of 128 after GQA 32:8, no RoPE)
+# (label, B, Sq, Sk, H, hd, q dtype, K/V dtype, causal, window); "qwen2"
+# is the shape qwen2-0.5b's prefill of 4,096 tokens gives the kernel (14
+# heads after the GQA expansion), "window" starcoder2-3b's sliding window
+# at 8,192 tokens, "phi3v" phi-3-vision's head_dim 96 (32 heads) at
+# 4,096 tokens (the vlm serving path's prefill), "ragged" a length off the
+# 64-key tiles with head_dim 96 in fp32 (the CUDA-core instantiation),
+# "hd28" qwen2-0.5b's smoke config (4 heads of head_dim 28, which the
+# wrapper zero-pads to 32) at 2,048 tokens, "granite" and "jamba" the zoo
+# serving path's 4,096-token prefills (granite-moe: 24 heads of 64 after
+# the GQA 24:8 expansion; jamba: 32 heads of 128 after GQA 32:8, no
+# RoPE), "whisper-enc" whisper-tiny's encoder over the serve CLI's
+# float32 frames (8 clips of 1,500, 6 heads of 64, non-causal, a ragged
+# last tile: the whisper serving path's shape) and "whisper-enc-bf16" the
+# same in bf16, "cross" the cross-attention of a 2,048-token decoder
+# forward over a float32 encoder output (a bf16 q against float32 K/V,
+# which takes the float32 kernel), "nokey" a causal window whose rows
+# 263-299 see no key (the Pallas kernel's sum v / Sk_pad there; Sk 200
+# pads to 256)
 FLASH_SHAPES = (
-    ("qwen2", 1, 4096, 14, 64, torch.bfloat16, True, 0),
-    ("window", 1, 8192, 24, 128, torch.bfloat16, True, 4096),
-    ("phi3v", 1, 4096, 32, 96, torch.bfloat16, True, 0),
-    ("ragged", 2, 1100, 3, 96, torch.float32, False, 0),
-    ("hd28", 1, 2048, 4, 28, torch.bfloat16, True, 0),
-    ("granite", 1, 4096, 24, 64, torch.bfloat16, True, 0),
-    ("jamba", 1, 4096, 32, 128, torch.bfloat16, True, 0),
+    ("qwen2", 1, 4096, 4096, 14, 64, torch.bfloat16, torch.bfloat16, True,
+     0),
+    ("window", 1, 8192, 8192, 24, 128, torch.bfloat16, torch.bfloat16,
+     True, 4096),
+    ("phi3v", 1, 4096, 4096, 32, 96, torch.bfloat16, torch.bfloat16, True,
+     0),
+    ("ragged", 2, 1100, 1100, 3, 96, torch.float32, torch.float32, False,
+     0),
+    ("hd28", 1, 2048, 2048, 4, 28, torch.bfloat16, torch.bfloat16, True,
+     0),
+    ("granite", 1, 4096, 4096, 24, 64, torch.bfloat16, torch.bfloat16,
+     True, 0),
+    ("jamba", 1, 4096, 4096, 32, 128, torch.bfloat16, torch.bfloat16,
+     True, 0),
+    ("whisper-enc", 8, 1500, 1500, 6, 64, torch.float32, torch.float32,
+     False, 0),
+    ("whisper-enc-bf16", 8, 1500, 1500, 6, 64, torch.bfloat16,
+     torch.bfloat16, False, 0),
+    ("cross", 1, 2048, 1500, 6, 64, torch.bfloat16, torch.float32, False,
+     0),
+    ("nokey", 1, 300, 200, 2, 64, torch.float32, torch.float32, True, 64),
+    ("nokey-bf16", 1, 300, 200, 2, 64, torch.bfloat16, torch.bfloat16,
+     True, 64),
 )
 # per-element bound against the plain version, |out - want| <= atol +
 # rtol * |want|.  Both compute in fp32 and differ only in the order of
@@ -522,7 +572,9 @@ FLASH_SHAPES = (
 FLASH_TOL = {torch.bfloat16: (2.0 ** -7, 1e-4), torch.float32: (0.0, 1e-4)}
 ARCH = "qwen2-0.5b"
 PREFILL_LEN = 4096
-DECODE_LEN = 1536          # > 1024, so logits_fn runs the kernel
+# > 1024, so logits_fn runs the kernel; cut from 1,536 so that the whole
+# run, with the whisper, vlm and examples paths, stays under 950 s
+DECODE_LEN = 1025
 # the bound tests/test_models.py holds decode to against the forward pass
 LOGITS_REL_TOL = 2e-2
 # the bound tests/test_sim.py holds every runtime's params to against the
@@ -596,6 +648,28 @@ RULE_BY_SHARE = ("qwen3-moe-235b-a22b", "granite-moe-3b-a800m")
 # cut to BF16_GATE's layers, its decode against the prefill of the
 # witness's tokens.
 BF16_GATE = ("granite-moe-3b-a800m", 8, 256)
+# the whisper serving path: whisper-tiny's CONFIG over the serve CLI's
+# float32 frames, 8 clips; a 4-token prompt and 444 generated tokens
+# fill whisper's 448-token context.  Its float32 model is held to the
+# JAX package's (tools/record_whisper_reference.py): the serve ids
+# exactly, the forward's largest logit and log-sum-exp at each position
+# within WHISPER_LOGIT_TOL of the largest logit
+WHISPER_CLIPS, WHISPER_PROMPT, WHISPER_GEN = 8, 4, 444
+WHISPER_REFERENCE = ROOT / "tools" / "whisper_reference.json"
+WHISPER_LOGIT_TOL = 1e-4
+# the vlm serving path: phi-3-vision-4.2b's CONFIG, a 4,096-token prefill
+# (its first 256 slots the image prefix), 256 decode steps
+VLM_PREFILL, VLM_DECODE = 4096, 256
+# the examples path: (name, [script, args...]), each run on the card
+EXAMPLE_RUNS = (
+    ("quickstart", ["quickstart_torch.py"]),
+    ("fl_pretrain_lm", ["fl_pretrain_lm_torch.py"]),
+    ("scheme_comparison", ["scheme_comparison_torch.py", "--rounds", "5"]),
+    ("serve_decode_whisper", ["serve_decode_torch.py", "--arch",
+                              "whisper-tiny"]),
+    ("serve_decode", ["serve_decode_torch.py"]),
+)
+EXAMPLE_TIMEOUT_S = 400
 # the full-width train step: qwen2-0.5b's CONFIG (24 layers, bf16,
 # remat, chunked attention) at train_4k's length, batch cut from 256 to
 # 2 for one card; 3 SGD steps on one fixed batch
@@ -770,20 +844,23 @@ def flash_pairs(sq, sk, causal, window):
     return int(torch.clamp(hi - lo, min=0).sum())
 
 
-def flash_ops(b, s, h, hd, causal, window):
+def flash_ops(b, sq, sk, h, hd, causal, window):
     """The useful work: 4*hd flops per unmasked (query, key) pair per head
     (two products)."""
-    return 4 * hd * b * h * flash_pairs(s, s, causal, window)
+    return 4 * hd * b * h * flash_pairs(sq, sk, causal, window)
 
 
-def flash_bound(b, s, h, hd, dtype, causal, window):
-    """Least time: q, k, v read once and o written once, against
-    4*hd flops per unmasked (query, key) pair per head (two products),
-    on the bf16 tensor cores for bf16 and the fp32 CUDA cores for fp32."""
-    esize = torch.tensor([], dtype=dtype).element_size()
-    moved = 4 * b * s * h * hd * esize
-    ops = flash_ops(b, s, h, hd, causal, window)
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+def flash_bound(b, sq, sk, h, hd, q_dtype, kv_dtype, causal, window):
+    """Least time: q, k, v read once and o (q's type) written once,
+    against 4*hd flops per unmasked (query, key) pair per head (two
+    products), on the bf16 tensor cores where every input is bf16, else
+    on the fp32 CUDA cores."""
+    def esize(dt):
+        return torch.tensor([], dtype=dt).element_size()
+    moved = 2 * b * h * hd * (sq * esize(q_dtype) + sk * esize(kv_dtype))
+    ops = flash_ops(b, sq, sk, h, hd, causal, window)
+    peak = (PEAK_BF16_FLOPS if q_dtype == kv_dtype == torch.bfloat16
+            else PEAK_FP32_FLOPS)
     t_bytes, t_ops = moved / PEAK_HBM_BYTES, ops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -806,35 +883,41 @@ def single_bf16_p(q, k, v, causal, window):
     return (torch.einsum("bhqk,bkhd->bqhd", p, v.float()) / l).to(q.dtype)
 
 
-def check_flash(OPS, dev, label, b, s, h, hd, dtype, causal, window, seed):
+def check_flash(OPS, dev, label, b, sq, sk, h, hd, q_dtype, kv_dtype,
+                causal, window, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
-    q, k, v = (torch.randn(b, s, h, hd, device=dev, generator=g).to(dtype)
-               for _ in range(3))
+    q = torch.randn(b, sq, h, hd, device=dev, generator=g).to(q_dtype)
+    k, v = (torch.randn(b, sk, h, hd, device=dev, generator=g).to(kv_dtype)
+            for _ in range(2))
     before = OPS.flash_attention.launches
     out = OPS.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     require(OPS.flash_attention.launches == before + 1,
             f"flash {label}: the wrapper did not count exactly one launch")
     want = OPS._flash_attention_torch(q, k, v, causal=causal, window=window)
-    require(out.dtype == dtype and out.shape == q.shape,
+    require(out.dtype == q_dtype and out.shape == q.shape,
             f"flash {label}: output {out.dtype} {tuple(out.shape)}")
     diff = (out.float() - want.float()).abs()
     err = float(diff.max())
-    rtol, atol = FLASH_TOL[dtype]
+    rtol, atol = FLASH_TOL[q_dtype]
     share = float((diff / (atol + rtol * want.float().abs())).max())
     require(share <= 1.0,
             f"flash {label}: error {err} (max abs) exceeds atol {atol} + "
             f"rtol {rtol} * |want| by a factor {share}")
     again = OPS.flash_attention(q, k, v, causal=causal, window=window)
     require(torch.equal(out, again), f"flash {label}: two runs differ")
-    # the library yardstick, in its (B, H, S, hd) layout; the window
-    # shape passes its mask as an explicit boolean attn_mask
+    # the library yardstick, in its (B, H, S, hd) layout, on inputs of one
+    # type (mixed ones upcast beforehand, outside the timed call); a
+    # window passes its mask as an explicit boolean attn_mask (SDPA gives
+    # a row that sees no key something else than the Pallas kernel)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if q_dtype != kv_dtype:
+        qt, kt, vt = (t.float() for t in (qt, kt, vt))
     if window > 0:
-        pos = torch.arange(s, device=dev)
-        mask = (pos[None, :] <= pos[:, None]) & \
-            (pos[None, :] > pos[:, None] - window)
+        qpos = torch.arange(sq, device=dev)[:, None]
+        kpos = torch.arange(sk, device=dev)[None, :]
+        mask = (kpos > qpos - window) & ((kpos <= qpos) if causal else True)
         lib = lambda: sdpa(qt, kt, vt, attn_mask=mask)
     else:
         lib = lambda: sdpa(qt, kt, vt, is_causal=causal)
@@ -843,7 +926,7 @@ def check_flash(OPS, dev, label, b, s, h, hd, dtype, causal, window, seed):
     lib_err = float(lib_diff.max())
     lib_share = float((lib_diff / (atol + rtol * want.float().abs())).max())
     single = ""
-    if dtype == torch.bfloat16:
+    if q_dtype == kv_dtype == torch.bfloat16:
         one_p = (single_bf16_p(q, k, v, causal, window).float()
                  - want.float()).abs()
         one_p_share = float((one_p / (atol + rtol * want.float().abs()))
@@ -855,10 +938,15 @@ def check_flash(OPS, dev, label, b, s, h, hd, dtype, causal, window, seed):
     plain_ms = median_ms(lambda: OPS._flash_attention_torch(
         q, k, v, causal=causal, window=window))
     library_ms = median_ms(lib)
-    bound_ms, bound_by = flash_bound(b, s, h, hd, dtype, causal, window)
-    tflop_s = flash_ops(b, s, h, hd, causal, window) / (ms * 1e-3) / 1e12
-    print(f"flash_attention[{label}] B={b} S={s} H={h} hd={hd} "
-          f"{str(dtype).removeprefix('torch.')} causal={causal} "
+    bound_ms, bound_by = flash_bound(b, sq, sk, h, hd, q_dtype, kv_dtype,
+                                     causal, window)
+    tflop_s = (flash_ops(b, sq, sk, h, hd, causal, window) / (ms * 1e-3)
+               / 1e12)
+    types = str(q_dtype).removeprefix("torch.")
+    if kv_dtype != q_dtype:
+        types += f" q, {str(kv_dtype).removeprefix('torch.')} k/v"
+    print(f"flash_attention[{label}] B={b} Sq={sq} Sk={sk} H={h} hd={hd} "
+          f"{types} causal={causal} "
           f"window={window}: ms={ms!r} plain_ms={plain_ms!r} "
           f"library_ms={library_ms!r} bound_ms={bound_ms!r} ({bound_by}) "
           f"tflop_s={tflop_s!r} max_abs_err={err!r} share_of_bound={share!r} "
@@ -868,13 +956,39 @@ def check_flash(OPS, dev, label, b, s, h, hd, dtype, causal, window, seed):
             "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
 
 
+def serve_replayed(cfg, params, cuda, tag: str) -> None:
+    """``serve`` 4 x (16 + 32) tokens, then replay the sequences through
+    ``decode_step``: each served id must be the argmax of the logits
+    that made it.  Prints the served seconds, tokens/s and ids."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as MD
+
+    batch, prompt_len, gen = 4, 16, 32
+    out = serve(cfg, params, batch, prompt_len, gen, cuda)
+    ids = out["tokens"]
+    require(tuple(ids.shape) == (batch, gen), f"{tag}: served "
+            f"{tuple(ids.shape)}")
+    seq = torch.cat([out["prompts"], ids.long()], dim=1)
+    state = MD.init_decode_state(cfg, batch, prompt_len + gen, cuda)
+    for p in range(prompt_len + gen - 1):
+        lg, state = MD.decode_step(cfg, params, state, seq[:, p], p)
+        if p >= prompt_len - 1:
+            got = lg.gather(1, seq[:, p + 1:p + 2])[:, 0]
+            require(bool((got == lg.max(dim=1).values).all()),
+                    f"{tag}: served id at position {p + 1} is not the "
+                    "argmax of its logits")
+    print(f"{tag} serve: batch={batch} prompt_len={prompt_len} gen={gen} "
+          f"prefill_s={out['prefill_s']!r} decode_s={out['decode_s']!r} "
+          f"tokens_per_s={batch * gen / out['decode_s']!r} "
+          f"ids[0,:16]={ids[0, :16].tolist()}", flush=True)
+
+
 def serving_path(OPS, cuda) -> int:
     """qwen2-0.5b at full width on the card: prefill through the kernel
     against the plain path, decode against the kernel prefill, serve.
     Returns the prefill's flash_attention launches."""
     from repro_torch import rng
     from repro_torch.configs.registry import get_config
-    from repro_torch.launch.serve import serve
     from repro_torch.models import model as MD
 
     cfg = get_config(ARCH).replace(attn_impl="pallas")
@@ -948,23 +1062,7 @@ def serving_path(OPS, cuda) -> int:
     del full, state
 
     # ---- serve 4 x 32 tokens; replay to check the ids -----------------
-    batch, prompt_len, gen = 4, 16, 32
-    out = serve(cfg, params, batch, prompt_len, gen, cuda)
-    ids = out["tokens"]
-    require(tuple(ids.shape) == (batch, gen), f"served {tuple(ids.shape)}")
-    seq = torch.cat([out["prompts"], ids.long()], dim=1)
-    state = MD.init_decode_state(cfg, batch, prompt_len + gen, cuda)
-    for p in range(prompt_len + gen - 1):
-        lg, state = MD.decode_step(cfg, params, state, seq[:, p], p)
-        if p >= prompt_len - 1:
-            got = lg.gather(1, seq[:, p + 1:p + 2])[:, 0]
-            require(bool((got == lg.max(dim=1).values).all()),
-                    f"served id at position {p + 1} is not the argmax of "
-                    "its logits")
-    print(f"serve: batch={batch} prompt_len={prompt_len} gen={gen} "
-          f"prefill_s={out['prefill_s']!r} decode_s={out['decode_s']!r} "
-          f"tokens_per_s={batch * gen / out['decode_s']!r} "
-          f"ids[0,:16]={ids[0, :16].tolist()}", flush=True)
+    serve_replayed(cfg, params, cuda, "serving")
     return launches
 
 
@@ -1140,7 +1238,6 @@ def serve_zoo_model(OPS, cuda, arch, layers, prefill_len, steps, gate_steps,
     flash_attention launches."""
     from repro_torch import rng
     from repro_torch.configs.registry import get_config
-    from repro_torch.launch.serve import serve
     from repro_torch.models import model as MD
 
     cfg = get_config(arch).replace(attn_impl="pallas")
@@ -1190,25 +1287,7 @@ def serve_zoo_model(OPS, cuda, arch, layers, prefill_len, steps, gate_steps,
     agreement(OPS, cuda, arch, cfg, params, prefill_len, steps, gate=False)
 
     # ---- serve 4 x (16 + 32); replay to check the ids ------------------
-    batch, prompt_len, gen = 4, 16, 32
-    out = serve(cfg, params, batch, prompt_len, gen, cuda)
-    ids = out["tokens"]
-    require(tuple(ids.shape) == (batch, gen), f"{tag}: served "
-            f"{tuple(ids.shape)}")
-    seq = torch.cat([out["prompts"], ids.long()], dim=1)
-    state = MD.init_decode_state(cfg, batch, prompt_len + gen, cuda)
-    for p in range(prompt_len + gen - 1):
-        lg, state = MD.decode_step(cfg, params, state, seq[:, p], p)
-        if p >= prompt_len - 1:
-            got = lg.gather(1, seq[:, p + 1:p + 2])[:, 0]
-            require(bool((got == lg.max(dim=1).values).all()),
-                    f"{tag}: served id at position {p + 1} is not the "
-                    "argmax of its logits")
-    print(f"{tag} serve: batch={batch} prompt_len={prompt_len} gen={gen} "
-          f"prefill_s={out['prefill_s']!r} decode_s={out['decode_s']!r} "
-          f"tokens_per_s={batch * gen / out['decode_s']!r} "
-          f"ids[0,:16]={ids[0, :16].tolist()}", flush=True)
-    del state
+    serve_replayed(cfg, params, cuda, tag)
     if any(b.mixer != "attn" for b in cfg.cycle):
         per_block_agreement(cuda, cfg, params, BLOCK_STEPS)
     del params
@@ -1248,6 +1327,275 @@ def zoo_serving_path(OPS, cuda) -> int:
     launches = sum(serve_zoo_model(OPS, cuda, *spec) for spec in ZOO_SERVING)
     bf16_rule(OPS, cuda)
     return launches
+
+
+def whisper_serving_path(OPS, cuda) -> int:
+    """whisper-tiny's full CONFIG on the card, bf16, ``attn_impl="pallas"``,
+    over WHISPER_CLIPS clips of the serve CLI's float32 frames: init,
+    ``encode`` with its counts reset before and read after (one
+    flash_attention launch an encoder layer, through the float32 kernel:
+    the float32 frames take the encoder to float32), the cross cache, a
+    serve of WHISPER_PROMPT + WHISPER_GEN tokens (whisper's 448-token
+    context), and a teacher-forced 448-token ``logits_fn`` against decode
+    under tests/test_models.py's rule.  Then the float32 model against
+    the JAX package's (WHISPER_REFERENCE): the serve CLI's ids at batch
+    2 and a 64-token forward's argmax, largest logit and log-sum-exp.
+    Returns the encode's flash_attention launches."""
+    from repro_torch import rng
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import encoder_frames, serve
+    from repro_torch.models import model as MD
+
+    cfg = get_config("whisper-tiny").replace(attn_impl="pallas")
+    tag = f"whisper serving {cfg.name}"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = MD.init_params(cfg, rng.PRNGKey(0), cuda)
+    torch.cuda.synchronize()
+    n = sum(v.numel() for v in MD.flatten_params(params).values())
+    print(f"{tag}: {cfg.encoder_layers} encoder + {cfg.num_layers} decoder "
+          f"layers d_model={cfg.d_model} {cfg.dtype} params={n} init_params "
+          f"{time.perf_counter() - t!r} s", flush=True)
+
+    # ---- encode, counts reset before and read after --------------------
+    frames = encoder_frames(cfg, WHISPER_CLIPS, device=cuda)
+    reset_counts(OPS)
+    t = time.perf_counter()
+    enc = MD.encode(cfg, params, frames)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    launches = OPS.flash_attention.launches
+    require(launches == cfg.encoder_layers, f"{tag}: encode made "
+            f"{launches} flash_attention launches, expected "
+            f"{cfg.encoder_layers}")
+    require(enc.dtype == torch.float32 and bool(torch.isfinite(enc).all()),
+            f"{tag}: encoder output {enc.dtype}, float32 frames must take "
+            "it (and the kernel) to float32")
+    t = time.perf_counter()
+    enc = MD.encode(cfg, params, frames)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    t = time.perf_counter()
+    cross = MD.build_cross_cache(cfg, params, enc)
+    torch.cuda.synchronize()
+    cross_s = time.perf_counter() - t
+    print(f"{tag} encode: B={WHISPER_CLIPS} frames={cfg.encoder_seq} "
+          f"float32 flash_attention launches={launches} (flash_fwd_fp32) "
+          f"wall_s first={first_s!r} warm={warm_s!r} frames_per_s="
+          f"{WHISPER_CLIPS * cfg.encoder_seq / warm_s!r}; cross cache "
+          f"{cross['k'].dtype} {cross_s!r} s", flush=True)
+
+    # ---- serve: prompt 4, 444 generated --------------------------------
+    out = serve(cfg, params, WHISPER_CLIPS, WHISPER_PROMPT, WHISPER_GEN,
+                cuda)
+    ids = out["tokens"]
+    require(tuple(ids.shape) == (WHISPER_CLIPS, WHISPER_GEN),
+            f"{tag}: served {tuple(ids.shape)}")
+    print(f"{tag} serve: batch={WHISPER_CLIPS} prompt_len={WHISPER_PROMPT} "
+          f"gen={WHISPER_GEN} encode_s={out['encode_s']!r} prefill_s="
+          f"{out['prefill_s']!r} decode_s_per_step="
+          f"{out['decode_s'] / WHISPER_GEN!r} tokens_per_s="
+          f"{WHISPER_CLIPS * WHISPER_GEN / out['decode_s']!r} peak_gb="
+          f"{torch.cuda.max_memory_allocated() / 1e9!r} "
+          f"ids[0,:16]={ids[0, :16].tolist()}", flush=True)
+
+    # ---- teacher-forced 448 tokens: logits_fn against decode -----------
+    steps = WHISPER_PROMPT + WHISPER_GEN
+    toks = rng.randint(rng.PRNGKey(2), (WHISPER_CLIPS, steps), 0,
+                       cfg.vocab_size, cuda)
+    full = MD.logits_fn(cfg, params, toks, encoder_frames=frames).float()
+    state = MD.init_decode_state(cfg, WHISPER_CLIPS, steps, cuda)
+    state["cross"] = cross
+    rel = []
+    for p in range(steps):
+        lg, state = MD.decode_step(cfg, params, state, toks[:, p], p)
+        rel.append((lg - full[:, p]).abs().max())
+    worst = float(torch.stack(rel).max() / full.abs().max())
+    print(f"{tag} decode vs logits_fn over {steps} teacher-forced tokens: "
+          f"max_rel={worst!r} (gated: < {LOGITS_REL_TOL})", flush=True)
+    require(worst < LOGITS_REL_TOL, f"{tag}: decode vs logits_fn {worst} "
+            f">= {LOGITS_REL_TOL}")
+    del params, enc, cross, full, state
+
+    # ---- the float32 model against the JAX package's -------------------
+    ref = json.loads(WHISPER_REFERENCE.read_text())
+    fcfg = cfg.replace(dtype="float32")
+    params = MD.init_params(fcfg, rng.PRNGKey(0), cuda)
+    sv = ref["serve"]
+    out = serve(fcfg, params, sv["batch"], sv["prompt_len"], sv["gen"],
+                cuda)
+    require(out["prompts"].tolist() == sv["prompts"],
+            f"{tag} float32: prompts differ from the JAX CLI's")
+    require(out["tokens"].tolist() == sv["tokens"],
+            f"{tag} float32: served {out['tokens'].tolist()}, the JAX "
+            f"package serves {sv['tokens']}")
+    fw = ref["forward"]
+    frames = encoder_frames(fcfg, sv["batch"], device=cuda)
+    logits = MD.logits_fn(fcfg, params, torch.tensor(fw["tokens"],
+                                                     device=cuda),
+                          encoder_frames=frames).float()
+    want_max = torch.tensor(fw["max"], device=cuda)
+    want_lse = torch.tensor(fw["logsumexp"], device=cuda)
+    scale = float(want_max.abs().max())
+    gap = max(float((logits.amax(-1) - want_max).abs().max()),
+              float((torch.logsumexp(logits, -1) - want_lse).abs().max()))
+    same = logits.argmax(-1).tolist() == fw["argmax"]
+    print(f"{tag} float32 against the JAX package: serve ids equal "
+          f"({sv['batch']} x {sv['gen']}); forward over "
+          f"{len(fw['tokens'][0])} tokens: argmax equal={same} largest "
+          f"gap of max logit and logsumexp={gap!r} ({gap / scale!r} of the "
+          f"largest logit; gated: < {WHISPER_LOGIT_TOL})", flush=True)
+    require(same, f"{tag} float32: forward argmax differs from the JAX "
+            "package's")
+    require(gap <= WHISPER_LOGIT_TOL * scale, f"{tag} float32: logits "
+            f"{gap} off the JAX package's (scale {scale})")
+    del params, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def vlm_serving_path(OPS, cuda) -> int:
+    """phi-3-vision-4.2b's full CONFIG on the card, bf16,
+    ``attn_impl="pallas"``: init, a VLM_PREFILL-token prefill whose first
+    256 slots are seeded image-prefix embeddings (counts reset before and
+    read after: one flash_attention launch a layer, hd 96), held to the
+    naive prefill; VLM_DECODE teacher-forced decode steps held to a
+    prefix-free forward of the same tokens (decoding never reads a
+    prefix, in either package); a 4 x (16 + 32) serve replayed.  Returns
+    the prefill's flash_attention launches."""
+    from repro_torch import rng
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as MD
+
+    cfg = get_config("phi-3-vision-4.2b").replace(attn_impl="pallas")
+    tag = f"vlm serving {cfg.name}"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = MD.init_params(cfg, rng.PRNGKey(0), cuda)
+    torch.cuda.synchronize()
+    n = sum(v.numel() for v in MD.flatten_params(params).values())
+    print(f"{tag}: {cfg.num_layers} layers d_model={cfg.d_model} "
+          f"{cfg.dtype} params={n} ({torch.cuda.memory_allocated() / 1e9!r}"
+          f" GB) init_params {time.perf_counter() - t!r} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9!r} GB", flush=True)
+
+    # ---- prefill with the image prefix, counts reset -------------------
+    toks = rng.randint(rng.PRNGKey(1), (1, VLM_PREFILL), 0, cfg.vocab_size,
+                       cuda)
+    prefix = rng.normal(rng.PRNGKey(3), (1, cfg.num_prefix_tokens,
+                                         cfg.d_model), cuda)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(OPS)
+    t = time.perf_counter()
+    logits = MD.logits_fn(cfg, params, toks, prefix_embeddings=prefix)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    launches = OPS.flash_attention.launches
+    require(launches == cfg.num_layers, f"{tag}: prefill made {launches} "
+            f"flash_attention launches, expected {cfg.num_layers}")
+    require(tuple(logits.shape) == (1, VLM_PREFILL, cfg.vocab_size)
+            and bool(torch.isfinite(logits).all()),
+            f"{tag}: prefill logits not finite or of the wrong shape")
+    t = time.perf_counter()
+    MD.logits_fn(cfg, params, toks, prefix_embeddings=prefix)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    plain = MD.logits_fn(cfg.replace(attn_impl="naive"), params, toks,
+                         prefix_embeddings=prefix)
+    per_pos = per_position_rel(logits[0], plain[0])
+    worst = float(per_pos.max())
+    print(f"{tag} prefill: S={VLM_PREFILL} with {cfg.num_prefix_tokens} "
+          f"prefix embeddings, flash_attention launches={launches} wall_s "
+          f"first={prefill_s!r} warm={warm_s!r} tokens_per_s="
+          f"{VLM_PREFILL / warm_s!r} peak_gb="
+          f"{torch.cuda.max_memory_allocated() / 1e9!r}; kernel vs naive "
+          f"max_rel={worst!r} median_rel={float(per_pos.median())!r} "
+          f"(gated: < {LOGITS_REL_TOL})", flush=True)
+    require(worst < LOGITS_REL_TOL, f"{tag}: kernel prefill vs naive "
+            f"{worst} >= {LOGITS_REL_TOL}")
+    del logits, plain
+
+    # ---- teacher-forced decode against a prefix-free forward -----------
+    toks = rng.randint(rng.PRNGKey(2), (1, VLM_DECODE), 0, cfg.vocab_size,
+                       cuda)
+    full = MD.logits_fn(cfg, params, toks)[0].float()
+    state = MD.init_decode_state(cfg, 1, VLM_DECODE, cuda)
+    rel = []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for p in range(VLM_DECODE):
+        lg, state = MD.decode_step(cfg, params, state, toks[:, p], p)
+        rel.append((lg[0] - full[p]).abs().max())
+    torch.cuda.synchronize()
+    dec_s = (time.perf_counter() - t) / VLM_DECODE
+    worst = float(torch.stack(rel).max() / full.abs().max())
+    print(f"{tag} decode: {VLM_DECODE} teacher-forced steps, {dec_s!r} s a "
+          f"step; vs the prefix-free forward max_rel={worst!r} (gated: < "
+          f"{LOGITS_REL_TOL})", flush=True)
+    require(worst < LOGITS_REL_TOL, f"{tag}: decode vs forward {worst} >= "
+            f"{LOGITS_REL_TOL}")
+    del full, state
+
+    # ---- serve 4 x (16 + 32); replay to check the ids ------------------
+    serve_replayed(cfg, params, cuda, tag)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def examples_path() -> dict:
+    """The four examples/*_torch.py on the card, each a subprocess of its
+    own (all started together), each printing its ``lloyd_step``
+    launches after its ``main``; each must exit 0.  Returns the launches
+    by run."""
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    runner = ("import runpy, sys\n"
+              "sys.argv = sys.argv[1:]\n"
+              "runpy.run_path(sys.argv[0], run_name='__main__')\n"
+              "from repro_torch.kernels import ops\n"
+              "print(f'lloyd_step launches={ops.lloyd_step.launches}')\n")
+    env = dict(__import__("os").environ,
+               PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    procs = {}
+    for name, argv in EXAMPLE_RUNS:
+        log = open(out_dir / f"example_{name}.log", "w")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-c", runner,
+             str(ROOT / "examples" / argv[0]), *argv[1:]],
+            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT), log,
+            time.perf_counter())
+    launches = {}
+    for name, (proc, log, t) in procs.items():
+        try:
+            rc = proc.wait(timeout=EXAMPLE_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            for other, *_ in procs.values():
+                other.kill()
+            raise
+        log.close()
+        text = (out_dir / f"example_{name}.log").read_text()
+        tail = " | ".join(text.strip().splitlines()[-3:])
+        print(f"example {name}: exit {rc} after "
+              f"{time.perf_counter() - t:.1f} s; {tail}", flush=True)
+        require(rc == 0, f"example {name} exited {rc}: {text[-2000:]}")
+        found = re.findall(r"lloyd_step launches=(\d+)", text)
+        launches[name] = int(found[-1])
+    return launches
+
+
+def rng_card_vs_cpu() -> None:
+    """How many elements of one 2^20-element ``rng.normal`` draw differ
+    between the card and the CPU (both through XLA's log1p and FMAs as
+    correctly rounded torch ops; expected 0): printed, not gated."""
+    from repro_torch import rng
+    n = 1 << 20
+    card = rng.normal(rng.PRNGKey(0), (n,), "cuda").cpu()
+    cpu = rng.normal(rng.PRNGKey(0), (n,), "cpu")
+    print(f"rng.normal card vs cpu: {int((card != cpu).sum())} of {n} "
+          "elements differ", flush=True)
 
 
 def _kernel_rows(prof):
@@ -2677,6 +3025,7 @@ def main() -> int:
     phase("kernel phase: flash_attention", t0)
     flash = {label: check_flash(OPS, cuda, label, *shape, seed)
              for seed, (label, *shape) in enumerate(FLASH_SHAPES)}
+    rng_card_vs_cpu()
 
     # ---- main path -----------------------------------------------------
     phase("paper path", t0)
@@ -2784,6 +3133,18 @@ def main() -> int:
     phase("zoo serving path", t0)
     zoo_flash_launches = zoo_serving_path(OPS, cuda)
 
+    # ---- whisper serving path --------------------------------------------
+    phase("whisper serving path", t0)
+    whisper_launches = whisper_serving_path(OPS, cuda)
+
+    # ---- vlm serving path ------------------------------------------------
+    phase("vlm serving path", t0)
+    vlm_launches = vlm_serving_path(OPS, cuda)
+
+    # ---- examples ----------------------------------------------------------
+    phase("examples path", t0)
+    example_launches = examples_path()
+
     # ---- full-width train step -------------------------------------------
     phase("full-width train step", t0)
     train_step_path(cuda, card)
@@ -2803,18 +3164,24 @@ def main() -> int:
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                 "bound_by": m["bound_by"], "library_ms": library_ms}
 
+    lloyd_examples = sum(example_launches.values())
     lloyd_launches = (dyn_launches + robust_launches + tf_launches
-                      + zoo_tf_launches)
+                      + zoo_tf_launches + lloyd_examples)
     print(f"lloyd_step launches by path: dynamics {dyn_launches} (its "
           f"churn-0.1 run), robust {robust_launches} (26 a run), "
           f"transformer {tf_launches} (26 a run), zoo transformer "
-          f"{zoo_tf_launches} (26 a run); the kernels line's launches is "
-          f"their total, {lloyd_launches}", flush=True)
+          f"{zoo_tf_launches} (26 a run), examples {lloyd_examples} ("
+          + ", ".join(f"{k} {v}" for k, v in example_launches.items())
+          + f"; each its own process, counted from 0); the kernels line's "
+          f"launches is their total, {lloyd_launches}", flush=True)
+    flash_total = (flash_launches + zoo_flash_launches + whisper_launches
+                   + vlm_launches)
     print(f"flash_attention launches by path: serving {flash_launches} "
           f"(qwen2-0.5b's prefill), zoo serving {zoo_flash_launches} "
-          f"(granite-moe's and jamba's prefills); the kernels line's "
-          f"launches is their total, {flash_launches + zoo_flash_launches}",
-          flush=True)
+          f"(granite-moe's and jamba's prefills), whisper serving "
+          f"{whisper_launches} (an encode), vlm serving {vlm_launches} "
+          f"(phi-3-vision's prefill); the kernels line's launches is "
+          f"their total, {flash_total}", flush=True)
     print(json.dumps({"kernels": [
         row("lloyd_step", "src/repro_torch/csrc/kmeans.cu",
             "src/repro/kernels/kmeans.py:144",
@@ -2824,7 +3191,7 @@ def main() -> int:
             assign["main"], None),
         row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention.py:81",
-            flash_launches + zoo_flash_launches, flash["qwen2"],
+            flash_total, flash["qwen2"],
             flash["qwen2"]["library_ms"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -45,9 +45,10 @@ def transformer_adapter(cfg, device="cuda") -> ModelAdapter:
     The LM objective is next-token prediction over x: tokens x[:, :-1],
     labels x[:, 1:], every position counted.  Params are the flat view of
     the model tree; ``loss`` and ``accuracy`` rebuild the nested view
-    (the same tensors) for ``loss_fn`` and ``logits_fn``."""
+    (the same tensors) for ``loss_fn`` and ``logits_fn``.  The batches
+    carry no encoder frames, so an encoder-decoder config fails in its
+    forward pass, as in the JAX package."""
     device = resolve_device(device)
-    MD.check_supported(cfg)
 
     def loss(params, batch):
         toks = batch["x"]

@@ -11,6 +11,16 @@
 // o = acc / max(l, 1e-30), as the Pallas kernel does.  Masks: kpos < Sk;
 // causal kpos <= qpos; window kpos > qpos - window when window > 0.
 //
+// A row that sees no key (with a window, a row q >= Sk - 1 + window) gets
+// what the Pallas kernel gives it: there every score is NEG_INF, so every
+// p = exp(0) = 1, the zero-padded keys of its key blocks count in l and
+// corr stays 1, so o = sum_{k < Sk} v_k / Sk_pad, where Sk_pad is Sk
+// rounded up to the Pallas key block min(128, max(Sk, 8)) (the caller
+// passes it).  Both kernels end with that epilogue: a row whose running
+// max is still NEG_INF after the key loop saw no key, and a block that
+// holds such a row sums V's Sk rows of its head once (threads over
+// head_dim columns, fp32) and writes sum / Sk_pad to those rows.
+//
 // What bounds it on an H100: 4*B*H*Sq*Sk*hd flops (about half of that
 // under the causal mask) against reading q, k, v and writing o once.  At
 // qwen2-0.5b's prefill (S = 4096, hd = 64, bf16, causal) that is about
@@ -56,10 +66,10 @@
 //    applied only on key tiles that cross a mask edge for some row of the
 //    query tile; interior tiles run unmasked.  Key tiles that the causal
 //    or window mask excludes for every row of the query tile are skipped.
-//    For a row that sees at least one key this gives the Pallas kernel's
-//    result: there p is not zeroed on masked entries, and a wholly masked
-//    tile seen while m is still NEG_INF adds terms that
-//    corr = exp(NEG_INF - m) wipes out later.
+//    For a row that sees a key this gives the Pallas kernel's result:
+//    there p is not zeroed on masked entries, and a wholly masked tile seen
+//    while m is still NEG_INF adds terms that corr = exp(NEG_INF - m)
+//    wipes out later; a row that sees none takes the epilogue above.
 //  * Instantiations by head_dim: hd 64, 96, 128 and 256 run with every
 //    loop bound a constant (no branch inside the unrolled loops); other
 //    multiples of 8 run padded in the next size up (64, 128 or 256).  Up to
@@ -206,6 +216,31 @@ __device__ __forceinline__ void copy_tile(const __nv_bfloat16* t,
   }
 }
 
+// The epilogue of a row that saw no key: colsum[d] = sum_{s < Sk} v[b, s,
+// h, d] / sk_pad for d < hd, summed by the block's threads over columns
+// (each column in key order, fp32) into shared memory.  Called by every
+// thread of the block after the key loop, when some row of the block saw
+// no key; ends with a barrier.
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T, int NTH>
+__device__ __forceinline__ void no_key_mean(const T* __restrict__ v,
+                                            float* colsum, int b, int h,
+                                            int Sk, int H, int hd,
+                                            int sk_pad) {
+  const size_t row_stride = (size_t)H * hd;
+  const T* base = v + (size_t)b * Sk * row_stride + (size_t)h * hd;
+  for (int d = threadIdx.x; d < hd; d += NTH) {
+    float acc = 0.f;
+    for (int s = 0; s < Sk; ++s) acc += to_f32(base[s * row_stride + d]);
+    colsum[d] = acc / (float)sk_pad;
+  }
+  __syncthreads();
+}
+
 // HDP bounds hd (the accumulator holds HDP columns), BKT is the key tile,
 // QREG keeps Q's A fragments in registers for the whole key loop.  PAD is
 // false when hd == HDP: then every loop bound is a constant and the
@@ -219,7 +254,7 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
               int H, int Sq, int Sk, int hd_arg, float scale_log2, int causal,
-              int window) {
+              int window, int sk_pad) {
   constexpr int NT = MMA_NT, BQ = MMA_BQ;
   constexpr int NKS = HDP / 16;     // k-steps of Q.K^T over head_dim
   constexpr int NSN = BKT / 8;      // n8 tiles of S (keys)
@@ -392,12 +427,21 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
     }
   }
 
+  // rows that saw no key (m still NEG_INF; uniform over the quad)
+  const bool none0 = m[0] == NEG_INF && row0 < Sq;
+  const bool none1 = m[1] == NEG_INF && row0 + 8 < Sq;
+  float* colsum = reinterpret_cast<float*>(smem_raw);
+  const bool any_none = __syncthreads_or(none0 || none1);
+  if (any_none) no_key_mean<__nv_bfloat16, NT>(v, colsum, b, h, Sk, H, hd,
+                                               sk_pad);
+
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float li = l[r];
     li += __shfl_xor_sync(0xffffffffu, li, 1);
     li += __shfl_xor_sync(0xffffffffu, li, 2);
     const int qpos = row0 + 8 * r;
+    const bool none = r ? none1 : none0;
     if (qpos < Sq) {
       const float inv = 1.f / fmaxf(li, 1e-30f);
       __nv_bfloat16* dst = o + (((size_t)b * Sq + qpos) * H + h) * hd;
@@ -406,8 +450,9 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
         const int col = 8 * j + 2 * t4;
         if (!PAD || col < hd)
           *reinterpret_cast<__nv_bfloat162*>(dst + col) =
-              __floats2bfloat162_rn(acc[j][2 * r] * inv,
-                                    acc[j][2 * r + 1] * inv);
+              none ? __floats2bfloat162_rn(colsum[col], colsum[col + 1])
+                   : __floats2bfloat162_rn(acc[j][2 * r] * inv,
+                                           acc[j][2 * r + 1] * inv);
       }
     }
   }
@@ -416,7 +461,8 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
 template <int HDP, int BKT, bool QREG, bool PAD>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
                        int B, int H, int Sq, int Sk, int hd, float scale,
-                       int causal, int window, cudaStream_t stream) {
+                       int causal, int window, int sk_pad,
+                       cudaStream_t stream) {
   static std::atomic<unsigned long long> attr_done{0};
   const int rs = ((hd + 15) & ~15) + 8;
   const int smem = (int)sizeof(__nv_bfloat16) * (MMA_BQ + 4 * BKT) * rs;
@@ -429,7 +475,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
   kern<<<grid, MMA_NT, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H,
-      Sq, Sk, hd, scale * LOG2E, causal, window);
+      Sq, Sk, hd, scale * LOG2E, causal, window, sk_pad);
   return cudaGetLastError();
 }
 
@@ -437,29 +483,29 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
 // multiple of 8 runs padded in the next instantiation up.
 cudaError_t dispatch_mma(const void* q, const void* k, const void* v, void* o,
                          int B, int H, int Sq, int Sk, int hd, float scale,
-                         int causal, int window, cudaStream_t s) {
+                         int causal, int window, int sk_pad, cudaStream_t s) {
   switch (hd) {
     case 64:
       return launch_mma<64, MMA_BK, true, false>(q, k, v, o, B, H, Sq, Sk,
-                                                 hd, scale, causal, window, s);
+                                                 hd, scale, causal, window, sk_pad, s);
     case 96:
       return launch_mma<96, MMA_BK, true, false>(q, k, v, o, B, H, Sq, Sk,
-                                                 hd, scale, causal, window, s);
+                                                 hd, scale, causal, window, sk_pad, s);
     case 128:
       return launch_mma<128, MMA_BK, true, false>(q, k, v, o, B, H, Sq, Sk,
-                                                  hd, scale, causal, window, s);
+                                                  hd, scale, causal, window, sk_pad, s);
     case 256:
       return launch_mma<256, BK_WIDE, false, false>(
-          q, k, v, o, B, H, Sq, Sk, hd, scale, causal, window, s);
+          q, k, v, o, B, H, Sq, Sk, hd, scale, causal, window, sk_pad, s);
   }
   if (hd < 64)
     return launch_mma<64, MMA_BK, true, true>(q, k, v, o, B, H, Sq, Sk, hd,
-                                              scale, causal, window, s);
+                                              scale, causal, window, sk_pad, s);
   if (hd < 128)
     return launch_mma<128, MMA_BK, true, true>(q, k, v, o, B, H, Sq, Sk, hd,
-                                               scale, causal, window, s);
+                                               scale, causal, window, sk_pad, s);
   return launch_mma<256, BK_WIDE, false, true>(
-      q, k, v, o, B, H, Sq, Sk, hd, scale, causal, window, s);
+      q, k, v, o, B, H, Sq, Sk, hd, scale, causal, window, sk_pad, s);
 }
 
 // ------------------------------------------------------------------------
@@ -491,7 +537,8 @@ template <int HDMAX>
 __global__ void __launch_bounds__(NT)
 flash_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, float* __restrict__ o, int H,
-               int Sq, int Sk, int hd, float scale, int causal, int window) {
+               int Sq, int Sk, int hd, float scale, int causal, int window,
+               int sk_pad) {
   constexpr int NJ = HDMAX / 8;
   extern __shared__ float smem[];
   const int QS = hd + 1;
@@ -594,6 +641,17 @@ flash_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
+  // rows that saw no key (m still NEG_INF; uniform over the row's lanes)
+  bool none[RPT], mine = false;
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    none[i] = m[i] == NEG_INF && q0 + rg * RPT + i < Sq;
+    mine = mine || none[i];
+  }
+  float* colsum = smem;
+  if (__syncthreads_or(mine))
+    no_key_mean<float, NT>(v, colsum, b, h, Sk, H, hd, sk_pad);
+
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     float li = l[i];
@@ -606,7 +664,9 @@ flash_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
       const size_t base = (((size_t)b * Sq + qpos) * H + h) * hd;
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
-        if (8 * j < hd) o[base + cg + 8 * j] = acc[i][j] * inv;
+        if (8 * j < hd)
+          o[base + cg + 8 * j] =
+              none[i] ? colsum[cg + 8 * j] : acc[i][j] * inv;
     }
   }
 }
@@ -614,7 +674,8 @@ flash_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
 template <int HDMAX>
 cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o,
                         int B, int H, int Sq, int Sk, int hd, float scale,
-                        int causal, int window, cudaStream_t stream) {
+                        int causal, int window, int sk_pad,
+                        cudaStream_t stream) {
   static std::atomic<unsigned long long> attr_done{0};
   const int smem = (int)sizeof(float) * ((BQ + BK32) * (hd + 1) +
                                          BK32 * hd + BQ * PS);
@@ -627,7 +688,7 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o,
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), H, Sq, Sk, hd,
-      scale, causal, window);
+      scale, causal, window, sk_pad);
   return cudaGetLastError();
 }
 
@@ -646,17 +707,20 @@ int flash_attention(const void* q, const void* k, const void* v, void* o,
       hd > 256 || H > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // Sk rounded up to the Pallas kernel's key block, min(128, max(Sk, 8))
+  const int pallas_bk = Sk < 8 ? 8 : (Sk < 128 ? Sk : 128);
+  const int sk_pad = (Sk + pallas_bk - 1) / pallas_bk * pallas_bk;
   if (is_bf16)
     return (int)dispatch_mma(q, k, v, o, B, H, Sq, Sk, hd, scale, causal,
-                             window, s);
+                             window, sk_pad, s);
   if (hd <= 64)
     return (int)launch_fp32<64>(q, k, v, o, B, H, Sq, Sk, hd, scale, causal,
-                                window, s);
+                                window, sk_pad, s);
   if (hd <= 128)
     return (int)launch_fp32<128>(q, k, v, o, B, H, Sq, Sk, hd, scale, causal,
-                                 window, s);
+                                 window, sk_pad, s);
   return (int)launch_fp32<256>(q, k, v, o, B, H, Sq, Sk, hd, scale, causal,
-                               window, s);
+                               window, sk_pad, s);
 }
 
 }  // extern "C"

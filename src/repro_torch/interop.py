@@ -3,9 +3,11 @@ port through numpy.  Names, layouts and dtypes are the JAX package's: a
 CNN parameter dict keeps ``c1_w`` (HWIO), ``f1_w`` (in, out), ... and
 every float is float32 (JAX runs with x64 off).  A transformer's tree
 keeps its nesting: ``tok_embed``, ``blocks`` (a tuple with one dict per
-cycle position, each leaf with a leading group axis), ``final_norm`` and
-an optional ``lm_head``, each leaf in its own dtype; the FL plane holds
-it in its flat view (``models.model.flatten_params``)."""
+cycle position, each leaf with a leading group axis), ``final_norm``, an
+optional ``lm_head`` and, for an encoder-decoder, ``pos_embed`` and the
+``enc`` subtree (``pos_embed``, ``blocks``, ``final_norm``), each leaf in
+its own dtype; the FL plane holds it in its flat view
+(``models.model.flatten_params``)."""
 from __future__ import annotations
 
 from typing import Any, Dict, Mapping

@@ -93,12 +93,35 @@ def kmeans_assign(x: torch.Tensor, c: torch.Tensor):
 kmeans_assign.launches = 0
 
 
+# the Pallas kernel's key block: min(PALLAS_BLOCK_K, max(Sk, 8)) keys
+PALLAS_BLOCK_K = 128
+
+
+def pallas_padded_keys(sk: int) -> int:
+    """Sk rounded up to the Pallas kernel's key block."""
+    bk = min(PALLAS_BLOCK_K, max(sk, 8))
+    return -(-sk // bk) * bk
+
+
 def _flash_attention_torch(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *, causal: bool = True,
                            window: int = 0) -> torch.Tensor:
     """The plain version: the naive fp32 softmax of
-    ``ref.flash_attention_ref``."""
-    return REF.flash_attention_ref(q, k, v, causal=causal, window=window)
+    ``ref.flash_attention_ref``, and on a row that sees no key (with a
+    window, q >= Sk - 1 + window) the Pallas kernel's result: there every
+    score is -1e30, so every p = exp(0) = 1 and the zero-padded keys of
+    its key blocks count in l: sum_{k < Sk} v_k / Sk_pad
+    (:func:`pallas_padded_keys`).  Inputs of mixed types are upcast, as
+    Pallas upcasts each tile; the output is in q's type."""
+    out = REF.flash_attention_ref(q, k, v, causal=causal, window=window)
+    sq, sk = q.shape[1], k.shape[1]
+    if not (window > 0 and sq >= sk + window):   # every row sees a key
+        return out
+    seen = REF.attention_mask(torch.arange(sq, device=q.device),
+                              torch.arange(sk, device=q.device),
+                              causal=causal, window=window).any(1)
+    mean = (v.float().sum(1) / pallas_padded_keys(sk)).to(out.dtype)
+    return torch.where(seen[None, :, None, None], out, mean[:, None])
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -128,7 +151,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     The kernel takes head dims that are multiples of 8; another hd under
     256 is zero-padded to the next one (zero columns add nothing to q.k,
     and the output's padded columns are dropped), with the scale of the
-    true hd."""
+    true hd.  Inputs of mixed types (a bf16 q against float32 K/V, as a
+    cross-attention over a float32 encoder output gives) take the float32
+    kernel: each is upcast (exactly) as the Pallas kernel upcasts its
+    tiles, and the output is cast to q's type."""
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -139,12 +165,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "with attn_impl='chunked' or 'naive'")
     if q.device.type == "cpu":
         return _flash_attention_torch(q, k, v, causal=causal, window=window)
-    hd = q.shape[-1]
+    hd, dtype = q.shape[-1], q.dtype
+    if not q.dtype == k.dtype == v.dtype:
+        q, k, v = (t.float() for t in (q, k, v))
     q, k, v = (_aligned(_pad_head_dim(t)) for t in (q, k, v))
     out = flash_attention_cuda(q, k, v, causal=causal, window=window,
                                scale=1.0 / math.sqrt(hd))
     flash_attention.launches += 1
-    return out[..., :hd] if out.shape[-1] != hd else out
+    out = out[..., :hd] if out.shape[-1] != hd else out
+    return out.to(dtype)
 
 
 flash_attention.launches = 0

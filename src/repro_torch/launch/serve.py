@@ -6,7 +6,10 @@
 
 The CLI serves the arch's reduced (smoke) config, with weights from
 ``init_params(cfg, PRNGKey(0))``, so its token ids match the JAX CLI's.
-The prompt is pre-filled by teacher-forced decode steps (a one-token
+An encoder-decoder config (whisper) first encodes stub frames drawn as
+the JAX CLI draws them, float32 ``normal(fold_in(PRNGKey(0), 1), (B,
+encoder_seq, d_model))``, and fills the cross cache from them.  The
+prompt is pre-filled by teacher-forced decode steps (a one-token
 server).  The run is on the GPU unless ``--device cpu`` is given.
 :func:`serve` is the loop as a function, for a caller that brings its own
 config and weights.
@@ -33,16 +36,32 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def encoder_frames(cfg: ModelConfig, batch: int,
+                   device="cuda") -> torch.Tensor:
+    """Stub frame embeddings (B, encoder_seq, d_model), float32, drawn
+    as the JAX CLI draws them, from ``fold_in(PRNGKey(0), 1)``."""
+    return rng.normal(rng.fold_in(rng.PRNGKey(0), 1),
+                      (batch, cfg.encoder_seq, cfg.d_model), device)
+
+
 def serve(cfg: ModelConfig, params, batch: int, prompt_len: int, gen: int,
           device="cuda") -> dict:
     """Greedy-decode ``gen`` tokens for ``batch`` random prompts of
     ``prompt_len`` tokens (drawn from ``fold_in(PRNGKey(0), 2)``, as the
-    JAX CLI draws them).  Returns the prompts (B, prompt_len), the
-    generated ids (B, gen) int32, and the host seconds of the prefill and
-    of the generation (each ends in a device synchronise)."""
+    JAX CLI draws them); an encoder-decoder config encodes
+    :func:`encoder_frames` first.  Returns the prompts (B, prompt_len),
+    the generated ids (B, gen) int32, and the host seconds of the
+    encoder and cross cache (0 without an encoder), of the prefill and of
+    the generation (each ends in a device synchronise)."""
     device = resolve_device(device)
     state = MD.init_decode_state(cfg, batch, prompt_len + gen, device)
     serve_step = make_serve_step(cfg)
+    t_enc = time.perf_counter()
+    if cfg.is_encdec:
+        frames = encoder_frames(cfg, batch, device=device)
+        state["cross"] = MD.build_cross_cache(
+            cfg, params, MD.encode(cfg, params, frames))
+        _sync(device)
     prompts = rng.randint(rng.fold_in(rng.PRNGKey(0), 2), (batch, prompt_len),
                           0, cfg.vocab_size, device)
     t0 = time.perf_counter()
@@ -61,7 +80,8 @@ def serve(cfg: ModelConfig, params, batch: int, prompt_len: int, gen: int,
     _sync(device)
     t2 = time.perf_counter()
     return {"prompts": prompts, "tokens": torch.stack(generated, dim=1),
-            "prefill_s": t1 - t0, "decode_s": t2 - t1}
+            "encode_s": t0 - t_enc, "prefill_s": t1 - t0,
+            "decode_s": t2 - t1}
 
 
 def main(argv: Optional[List[str]] = None) -> dict:

@@ -14,8 +14,10 @@ transformer`` and ``--mode selection``.
     (``make_token_dataset``), partitioned non-IID by topic.  Every arch
     without an encoder runs: the dense ones (phi-3-vision-4.2b without
     its image prefix), the MoE ones (granite-moe-3b-a800m,
-    qwen3-moe-235b-a22b), jamba-v0.1-52b (Mamba and MoE) and xlstm-1.3b;
-    whisper-tiny raises ``NotImplementedError``.
+    qwen3-moe-235b-a22b), jamba-v0.1-52b (Mamba and MoE) and xlstm-1.3b.
+    whisper-tiny fails as it fails in the JAX package: the token batches
+    carry no encoder frames, so its forward pass raises
+    ``AssertionError``.
   * ``--mode selection``: the selection-only simulation — the per-round
     auction and energy dynamics without training, over a synthetic fleet
     (``core/rounds.simulate_rounds``), at up to a million clients.  It
@@ -176,7 +178,7 @@ def run_transformer(args, device: torch.device) -> dict:
     data and 64-sequence test set."""
     from repro_torch.configs.registry import get_smoke_config
     mcfg = get_smoke_config(args.arch)
-    adapter = transformer_adapter(mcfg, device)     # refuses unported archs
+    adapter = transformer_adapter(mcfg, device)
     cfg = FLConfig(
         num_clients=max(10, args.clients // 5), num_clusters=5,
         select_ratio=0.2, rounds=args.rounds, lr=args.lr,

@@ -1,5 +1,4 @@
-"""Shared building blocks of the transformer (``repro.models.layers``
-without the cross-attention of the encoder-decoder models).
+"""Shared building blocks of the transformer (``repro.models.layers``).
 
 Parameters are plain nested dicts of tensors with the JAX package's
 names and layouts (a dense weight is (in, out)).  Every ``init_*`` draws
@@ -30,6 +29,11 @@ classes carry a generated vmap rule, so the batched FL runtimes'
 The decode KV cache is updated in place (the JAX package returns a new
 cache that XLA writes in place under buffer donation); the functions
 still return the cache, so callers read like the JAX code.
+
+Types follow JAX's promotion: a float32 activation times bf16 weights is
+a float32 product (whisper's encoder over float32 frames runs in float32
+on a bf16 config), which :func:`matmul` does where torch would refuse
+the mixed product.
 """
 from __future__ import annotations
 
@@ -145,15 +149,25 @@ def _gathered(w, cfg, *spec):
     return w
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in JAX's promoted type: operands of two float types are both
+    taken to the wider (torch refuses a mixed matmul)."""
+    if x.dtype != w.dtype:
+        dt = torch.result_type(x, w)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
+
+
 def apply_mlp(p, x, cfg=None):
     if "w_gate" in p:
-        h = Fn.silu(x @ _gathered(p["w_gate"], cfg, None, "model")) \
-            * (x @ _gathered(p["w_up"], cfg, None, "model"))
-        return h @ _gathered(p["w_down"], cfg, "model", None)
+        h = Fn.silu(matmul(x, _gathered(p["w_gate"], cfg, None, "model"))) \
+            * matmul(x, _gathered(p["w_up"], cfg, None, "model"))
+        return matmul(h, _gathered(p["w_down"], cfg, "model", None))
     # jax.nn.gelu defaults to the tanh approximation
-    h = Fn.gelu(x @ _gathered(p["w_up"], cfg, None, "model") + p["b_up"],
-                approximate="tanh")
-    return h @ _gathered(p["w_down"], cfg, "model", None) + p["b_down"]
+    h = Fn.gelu(matmul(x, _gathered(p["w_up"], cfg, None, "model"))
+                + p["b_up"], approximate="tanh")
+    return matmul(h, _gathered(p["w_down"], cfg, "model", None)) \
+        + p["b_down"]
 
 
 # ----------------------------------------------------------------------
@@ -179,7 +193,7 @@ def init_attention(key, cfg, *, device="cuda"):
 
 
 def _proj(x, w, b):
-    return x @ w if b is None else x @ w + b
+    return matmul(x, w) if b is None else matmul(x, w) + b
 
 
 def _qkv(p, x, cfg):
@@ -369,16 +383,20 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
 
 
 def attention_train(p, x, cfg, *, causal: bool = True,
-                    positions: Optional[torch.Tensor] = None):
-    """Full-sequence attention (train / prefill).  Cross-attention
-    (``kv_override`` in the JAX package) comes with the encoder-decoder
-    models, which are not ported yet."""
+                    positions: Optional[torch.Tensor] = None,
+                    kv_override=None):
+    """Full-sequence attention (train / prefill).  ``kv_override``
+    supplies external (B, Sk, KV, hd) K/V (cross-attention): q, k and v
+    are still projected from x, then k and v are replaced, and RoPE is
+    not applied."""
     B, S, _ = x.shape
     h, hd = cfg.num_heads, cfg.resolved_head_dim
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _qkv(p, x, cfg)
-    if cfg.rope_theta > 0:
+    if kv_override is not None:
+        k, v = kv_override
+    elif cfg.rope_theta > 0:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     k = _expand_kv(k, h)
@@ -391,7 +409,7 @@ def attention_train(p, x, cfg, *, causal: bool = True,
     else:
         o = chunked_attention(q, k, v, causal=causal, window=win)
     o = o.reshape(B, S, h * hd)
-    return o @ _gathered(p["wo"], cfg, "model", None)
+    return matmul(o, _gathered(p["wo"], cfg, "model", None))
 
 
 # ---------------- decode (single new token against a KV cache) -----------
@@ -446,23 +464,27 @@ def update_kv_cache(cache, k_new, v_new, pos, cfg):
     return cache
 
 
-def attention_decode(p, x, cache, pos, cfg):
-    """One-token self-attention against the cache.
+def attention_decode(p, x, cache, pos, cfg, *, cross: bool = False,
+                     cross_len=None):
+    """One-token attention against the cache.
 
     x: (B, 1, D).  pos: the current position (int).  Returns (out, cache);
-    the cache is updated in place.  Cross-attention comes with the
-    encoder-decoder models, which are not ported yet."""
+    a self-attention cache is updated in place.  For cross-attention
+    (``cross=True``) the cache holds the encoder's precomputed K/V and is
+    not written; every slot below ``cross_len`` (all of them when None)
+    is valid."""
     B = x.shape[0]
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     pos = int(pos)
     q = _proj(x, p["wq"], p.get("bq")).reshape(B, 1, h, hd)
-    k_new = _proj(x, p["wk"], p.get("bk")).reshape(B, 1, kv, hd)
-    v_new = _proj(x, p["wv"], p.get("bv")).reshape(B, 1, kv, hd)
-    if cfg.rope_theta > 0:
-        posv = torch.full((B, 1), pos, device=x.device)
-        q = apply_rope(q, posv, cfg.rope_theta)
-        k_new = apply_rope(k_new, posv, cfg.rope_theta)
-    cache = update_kv_cache(cache, k_new, v_new, pos, cfg)
+    if not cross:
+        k_new = _proj(x, p["wk"], p.get("bk")).reshape(B, 1, kv, hd)
+        v_new = _proj(x, p["wv"], p.get("bv")).reshape(B, 1, kv, hd)
+        if cfg.rope_theta > 0:
+            posv = torch.full((B, 1), pos, device=x.device)
+            q = apply_rope(q, posv, cfg.rope_theta)
+            k_new = apply_rope(k_new, posv, cfg.rope_theta)
+        cache = update_kv_cache(cache, k_new, v_new, pos, cfg)
     if "k_scale" in cache:
         kc = _dequantize_kv(cache["k"], cache["k_scale"])
         vc = _dequantize_kv(cache["v"], cache["v_scale"])
@@ -471,7 +493,9 @@ def attention_decode(p, x, cache, pos, cfg):
     eff = kc.shape[-3]
     # validity of each cache slot
     slot_idx = torch.arange(eff, device=x.device)
-    if cfg.sliding_window and cfg.sliding_window <= eff:
+    if cross:
+        valid = slot_idx < (eff if cross_len is None else cross_len)
+    elif cfg.sliding_window and cfg.sliding_window <= eff:
         valid = slot_idx < min(pos + 1, eff)   # ring buffer full once warm
     else:
         valid = slot_idx <= pos
@@ -482,7 +506,7 @@ def attention_decode(p, x, cache, pos, cfg):
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bkhd->bqhd", w, vc.float())
     o = o.to(x.dtype).reshape(B, 1, h * hd)
-    return o @ p["wo"], cache
+    return matmul(o, p["wo"]), cache
 
 
 # ----------------------------------------------------------------------

@@ -21,40 +21,11 @@ from __future__ import annotations
 
 from typing import Dict
 
-import numpy as np
 import torch
 import torch.nn.functional as Fn
 
-from repro_torch import rng
+from repro_torch import rng, xla_math
 from repro_torch.models.layers import dense_init, torch_dtype
-
-# Cephes' single-precision log (the polynomial XLA's CPU backend lowers
-# ``jnp.log`` to): the init's ``a_log = log(1..d_state)`` takes XLA's
-# roundings, which differ from a correctly rounded log (log 7 by an ulp)
-_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
-          -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
-          2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
-_LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
-
-
-def xla_log(v: np.ndarray) -> np.ndarray:
-    """float32 natural log of positive normal numbers, rounded as XLA's
-    CPU backend rounds it (every operation in float32, on the host)."""
-    f = np.float32
-    m, e = np.frexp(np.asarray(v, np.float32))
-    m, e = m.astype(f), e.astype(f)
-    small = m < f(0.707106781186547524)
-    e = np.where(small, e - f(1), e).astype(f)
-    x = np.where(small, (m + m) - f(1), m - f(1)).astype(f)
-    z = x * x
-    y = np.full_like(x, f(_LOG_P[0]))
-    for c in _LOG_P[1:]:
-        y = y * x + f(c)
-    y = (y * x) * z
-    y = y + e * f(_LOG_Q1)
-    y = y - z * f(0.5)
-    x = x + y
-    return (x + e * f(_LOG_Q2)).astype(f)
 
 
 def init_mamba(key, cfg, *, device="cuda") -> Dict[str, torch.Tensor]:
@@ -65,8 +36,9 @@ def init_mamba(key, cfg, *, device="cuda") -> Dict[str, torch.Tensor]:
     dr = cfg.dt_rank
     dt = torch_dtype(cfg.dtype)
     ks = rng.split(key, 7)
-    # S4D-real initialization for A
-    a_log = torch.tensor(xla_log(np.arange(1, ds + 1)), device=device)
+    # S4D-real A: XLA's float32 log of 1..d_state, bit for bit
+    a_log = xla_math.log(torch.arange(1, ds + 1, dtype=torch.float32,
+                                      device=device))
     f32 = dict(dtype=torch.float32, device=device)
     return {
         "w_in": dense_init(ks[0], (d, 2 * di), dt, device=device),

@@ -1,5 +1,5 @@
 """Model assembly: embeddings -> block groups -> norm -> LM head
-(``repro.models.model`` without the encoder-decoder).
+(``repro.models.model``).
 
 A config's ``cycle`` describes one period of the layer stack; the
 parameters of each cycle position are stacked over ``num_groups`` (a
@@ -7,10 +7,17 @@ leading group axis, as the JAX package stacks them for its ``lax.scan``),
 and the stack is applied by a Python loop over the groups.  A block's
 mixer is attention, Mamba (``models.mamba``), mLSTM or sLSTM
 (``models.xlstm``), and its FFN a dense MLP, an MoE (``models.moe``,
-whose auxiliary load-balance losses the stack sums) or none.  The
-encoder-decoder (whisper), learned positions and the multimodal prefix at
-decode raise ``NotImplementedError`` (ROADMAP.md, queue 1: the rest of
-the model zoo).
+whose auxiliary load-balance losses the stack sums) or none.
+
+An encoder-decoder config (whisper) adds learned positions and an
+encoder: :func:`encode` runs its own stack of (attn, mlp) blocks,
+non-causal, over stub frame embeddings; every attention block of an
+encoder-decoder config, the encoder's included (as the JAX package
+builds them), carries a cross-attention sublayer, which the decoder
+applies to the encoder's output.  Decoding reads the encoder through a
+cross cache (:func:`build_cross_cache`).  A multimodal prefix (the VLM)
+takes the place of the first token embeddings in :func:`forward`;
+decoding never reads it, as in the JAX package.
 
 With ``cfg.remat`` each block runs under ``torch.utils.checkpoint``
 (non-reentrant), so the backward holds one block's activations at a
@@ -27,12 +34,14 @@ sorted keys run in ``jax.tree.leaves`` order of the JAX tree.
 
 Public API:
   init_params(cfg, key, device)               -> params tree
+  encode(cfg, params, frames)                 -> encoder output (B,Se,D)
   forward(cfg, params, tokens, ...)           -> (hidden (B,S,D), moe aux)
   loss_fn(cfg, params, batch)                 -> NLL + 0.01 * moe aux
   logits_fn(cfg, params, tokens, ...)         -> logits (B, S, V)
   flatten_params(tree) / nested_params(flat)  -> the flat view and back
   value_and_grad(loss, flat, batch)           -> (loss, grads by key)
   init_decode_state(cfg, batch, L, device)    -> decode cache tree
+  build_cross_cache(cfg, params, enc_out)     -> the decoder's cross K/V
   decode_step(cfg, params, state, tok, pos)   -> (logits, state)
 """
 from __future__ import annotations
@@ -44,28 +53,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import rng
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
 from repro_torch.models import xlstm as X
-
-
-def check_supported(cfg: ModelConfig, *, decode: bool = False) -> None:
-    """Refuse every config with a part the port does not have yet."""
-    unported = []
-    if cfg.is_encdec:
-        unported.append("the encoder-decoder (cross-attention) path")
-    if cfg.learned_pos:
-        unported.append("learned positions")
-    if decode and cfg.num_prefix_tokens:
-        unported.append("the multimodal prefix at decode time")
-    if unported:
-        raise NotImplementedError(
-            f"{cfg.name}: not ported yet (ROADMAP.md, queue 1: the rest "
-            "of the model zoo): "
-            + ", ".join(unported))
 
 
 # ----------------------------------------------------------------------
@@ -126,6 +119,11 @@ def _init_block(key, cfg: ModelConfig, spec, device):
                            device=device),
         "mixer": MIXERS[spec.mixer].init(ks[1], cfg, device=device),
     }
+    if cfg.is_encdec and spec.mixer == "attn":
+        # a cross-attention sublayer (on the encoder's blocks too, unused)
+        p["ln_cross"] = L.init_norm(ks[4], cfg.d_model, dt, cfg.norm_kind,
+                                    device=device)
+        p["cross"] = L.init_attention(ks[5], cfg, device=device)
     if spec.ffn != "none":
         p["ln2"] = L.init_norm(ks[2], cfg.d_model, dt, cfg.norm_kind,
                                device=device)
@@ -143,20 +141,33 @@ def _stack(trees):
     return torch.stack(trees)
 
 
-def _init_block_stack(key, cfg: ModelConfig, device):
+# the encoder's one-position cycle
+ENCODER_CYCLE = (BlockSpec("attn", "mlp"),)
+
+
+def _init_block_stack(key, cfg: ModelConfig, device, *,
+                      encoder: bool = False):
     """One stacked-param dict per cycle position, leading dim =
-    num_groups; group g of position ``pos`` draws from
-    ``split(fold_in(key, pos), num_groups)[g]``."""
+    num_groups (the encoder: encoder_layers); group g of position ``pos``
+    draws from ``split(fold_in(key, pos), n)[g]``."""
+    if encoder:
+        n, cycle = cfg.encoder_layers, ENCODER_CYCLE
+        cfg = cfg.replace(sliding_window=0)
+    else:
+        n, cycle = cfg.num_groups, cfg.cycle
     blocks = []
-    for pos, spec in enumerate(cfg.cycle):
-        keys = rng.split(rng.fold_in(key, pos), cfg.num_groups)
+    for pos, spec in enumerate(cycle):
+        keys = rng.split(rng.fold_in(key, pos), n)
         blocks.append(_stack([_init_block(k, cfg, spec, device)
                               for k in keys]))
     return tuple(blocks)
 
 
+# rows of the decoder's learned position table
+POS_EMBED_ROWS = 32_768
+
+
 def init_params(cfg: ModelConfig, key, device="cuda") -> dict:
-    check_supported(cfg)
     device = resolve_device(device)
     ks = rng.split(key, 8)
     params = {
@@ -169,6 +180,17 @@ def init_params(cfg: ModelConfig, key, device="cuda") -> dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(ks[3], (cfg.d_model, cfg.vocab_size),
                                          cfg.dtype, device=device)
+    if cfg.learned_pos:
+        params["pos_embed"] = L.embed_init(
+            ks[4], (POS_EMBED_ROWS, cfg.d_model), cfg.dtype, device=device)
+    if cfg.is_encdec:
+        params["enc"] = {
+            "pos_embed": L.embed_init(ks[5], (cfg.encoder_seq, cfg.d_model),
+                                      cfg.dtype, device=device),
+            "blocks": _init_block_stack(ks[6], cfg, device, encoder=True),
+            "final_norm": L.init_norm(ks[7], cfg.d_model, cfg.dtype,
+                                      cfg.norm_kind, device=device),
+        }
     return params
 
 
@@ -188,9 +210,26 @@ def _group(tree, g: int):
 # forward (prefill)
 # ----------------------------------------------------------------------
 
-def _mixer_half(bp, x, cfg: ModelConfig, spec, causal: bool):
+def _cross(bp, x, cfg: ModelConfig, enc_out):
+    """x + the cross-attention sublayer over the encoder output."""
+    h = L.apply_norm(bp["ln_cross"], x, cfg.norm_eps)
+    c = bp["cross"]
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    Bc, Sc = enc_out.shape[0], enc_out.shape[1]
+    k = L._proj(enc_out, c["wk"], c.get("bk")).reshape(Bc, Sc, kv, hd)
+    v = L._proj(enc_out, c["wv"], c.get("bv")).reshape(Bc, Sc, kv, hd)
+    return x + L.attention_train(c, h, cfg, causal=False,
+                                 kv_override=(k, v))
+
+
+def _mixer_half(bp, x, cfg: ModelConfig, spec, causal: bool, enc_out=None):
+    """x + the mixer, then + the cross-attention sublayer where the block
+    has one and an encoder output is given."""
     h = L.apply_norm(bp["ln1"], x, cfg.norm_eps)
-    return x + MIXERS[spec.mixer].apply(bp["mixer"], h, cfg, causal)
+    x = x + MIXERS[spec.mixer].apply(bp["mixer"], h, cfg, causal)
+    if "cross" in bp and enc_out is not None:
+        x = _cross(bp, x, cfg, enc_out)
+    return x
 
 
 def _ffn_half(bp, x, cfg: ModelConfig, spec):
@@ -202,8 +241,9 @@ def _ffn_half(bp, x, cfg: ModelConfig, spec):
     return x + L.apply_mlp(bp["ffn"], h, cfg), 0.0
 
 
-def _apply_block(bp, x, cfg: ModelConfig, spec, *, causal: bool):
-    x = _mixer_half(bp, x, cfg, spec, causal)
+def _apply_block(bp, x, cfg: ModelConfig, spec, *, causal: bool,
+                 enc_out=None):
+    x = _mixer_half(bp, x, cfg, spec, causal, enc_out)
     if spec.ffn == "none":
         return x, 0.0
     return _ffn_half(bp, x, cfg, spec)
@@ -213,7 +253,8 @@ def _remat(fn, *args):
     return checkpoint(fn, *args, use_reentrant=False)
 
 
-def _run_stack(blocks, x, cfg: ModelConfig, *, causal: bool):
+def _run_stack(blocks, x, cfg: ModelConfig, cycle, num_groups: int, *,
+               causal: bool, enc_out=None):
     """Apply the grouped stack: groups in order, and within a group the
     cycle's positions in order; each block under remat with
     ``cfg.remat``.  Returns (x, the blocks' summed MoE auxiliary loss)."""
@@ -226,46 +267,73 @@ def _run_stack(blocks, x, cfg: ModelConfig, *, causal: bool):
         if cfg.remat_policy not in ("nothing", "save_block_out"):
             raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
     aux_sum = 0.0
-    for g in range(cfg.num_groups):
-        for pos, spec in enumerate(cfg.cycle):
+    for g in range(num_groups):
+        for pos, spec in enumerate(cycle):
             bp = _group(blocks[pos], g)
             if not cfg.remat:
-                x, aux = _apply_block(bp, x, cfg, spec, causal=causal)
+                x, aux = _apply_block(bp, x, cfg, spec, causal=causal,
+                                      enc_out=enc_out)
             elif cfg.remat_policy == "nothing":
                 # bound now: the backward recomputes after the loop moved on
                 x, aux = _remat(partial(_apply_block, cfg=cfg, spec=spec,
-                                        causal=causal), bp, x)
+                                        causal=causal, enc_out=enc_out),
+                                bp, x)
             else:
-                x, aux = _remat(_mixer_half, bp, x, cfg, spec, causal), 0.0
+                x, aux = _remat(_mixer_half, bp, x, cfg, spec, causal,
+                                enc_out), 0.0
                 if spec.ffn != "none":
                     x, aux = _remat(_ffn_half, bp, x, cfg, spec)
             aux_sum = aux_sum + aux
     return x, aux_sum
 
 
+def encode(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
+    """The whisper-style encoder over stub frame embeddings (B, Se, D):
+    learned positions, the encoder stack non-causal without a window, the
+    final norm.  In JAX's promoted type: float32 frames run a bf16
+    config's encoder in float32."""
+    enc = params["enc"]
+    x = frames + enc["pos_embed"][None, :frames.shape[1]]
+    x, _ = _run_stack(enc["blocks"], x, cfg.replace(sliding_window=0),
+                      ENCODER_CYCLE, cfg.encoder_layers, causal=False)
+    return L.apply_norm(enc["final_norm"], x, cfg.norm_eps)
+
+
 def forward(cfg: ModelConfig, params, tokens, *,
-            prefix_embeddings: Optional[torch.Tensor] = None):
+            prefix_embeddings: Optional[torch.Tensor] = None,
+            encoder_frames: Optional[torch.Tensor] = None):
     """Returns (the final hidden states (B, S, D), the summed MoE
     auxiliary loss, 0.0 without MoE blocks).  ``prefix_embeddings``
     (B, P, D) take the place of the first P token embeddings (the
-    multimodal prefix)."""
-    check_supported(cfg)
+    multimodal prefix); an encoder-decoder config needs
+    ``encoder_frames`` (B, Se, D) and fails without them with the JAX
+    package's ``AssertionError``."""
     x = params["tok_embed"][tokens]
     if prefix_embeddings is not None:
         P = prefix_embeddings.shape[1]
         x = torch.cat([prefix_embeddings.to(x.dtype), x[:, P:]], dim=1)
-    x, aux = _run_stack(params["blocks"], x, cfg, causal=True)
+    if cfg.learned_pos:
+        x = x + params["pos_embed"][None, :x.shape[1]]
+    enc_out = None
+    if cfg.is_encdec:
+        if encoder_frames is None:
+            raise AssertionError(f"{cfg.name}: an encoder-decoder forward "
+                                 "needs encoder_frames")
+        enc_out = encode(cfg, params, encoder_frames)
+    x, aux = _run_stack(params["blocks"], x, cfg, cfg.cycle, cfg.num_groups,
+                        causal=True, enc_out=enc_out)
     return L.apply_norm(params["final_norm"], x, cfg.norm_eps), aux
 
 
 def loss_fn(cfg: ModelConfig, params, batch, *,
             aux_weight: float = 0.01) -> torch.Tensor:
-    """batch: dict(tokens, labels, mask[, prefix_embeddings]).  The mean
-    masked next-token NLL plus ``aux_weight`` times the summed MoE
-    auxiliary loss (0.0 without MoE blocks, added all the same, as the
-    JAX package adds it)."""
+    """batch: dict(tokens, labels, mask[, prefix_embeddings,
+    encoder_frames]).  The mean masked next-token NLL plus ``aux_weight``
+    times the summed MoE auxiliary loss (0.0 without MoE blocks, added
+    all the same, as the JAX package adds it)."""
     x, aux = forward(cfg, params, batch["tokens"],
-                     prefix_embeddings=batch.get("prefix_embeddings"))
+                     prefix_embeddings=batch.get("prefix_embeddings"),
+                     encoder_frames=batch.get("encoder_frames"))
     nll = L.chunked_softmax_xent(None, x, lm_head_weight(cfg, params),
                                  batch["labels"], batch["mask"])
     return nll + aux_weight * aux
@@ -316,7 +384,8 @@ def value_and_grad(loss, flat: Dict[str, torch.Tensor], batch
 
 def nested_params(flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """Rebuild the tree from :func:`flatten_params`'s view (the same
-    tensors; ``blocks`` is a tuple, as :func:`init_params` makes it)."""
+    tensors; ``blocks`` and ``enc.blocks`` are tuples, as
+    :func:`init_params` makes them)."""
     tree: Dict[str, Any] = {}
     for key, v in flat.items():
         *path, leaf = key.split(SEP)
@@ -324,9 +393,10 @@ def nested_params(flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         for part in path:
             node = node.setdefault(part, {})
         node[leaf] = v
-    blocks = tree.get("blocks")
-    if blocks is not None:
-        tree["blocks"] = tuple(blocks[i] for i in sorted(blocks))
+    for node in (tree, tree.get("enc", {})):
+        blocks = node.get("blocks")
+        if blocks is not None:
+            node["blocks"] = tuple(blocks[i] for i in sorted(blocks))
     return tree
 
 
@@ -337,13 +407,39 @@ def nested_params(flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
 def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
                       device="cuda"):
     """Self-attention / recurrent caches, one per cycle position, stacked
-    over the groups."""
-    check_supported(cfg, decode=True)
+    over the groups; an encoder-decoder config adds the zeroed cross
+    cache (num_groups, batch, encoder_seq, KV, hd), which
+    :func:`build_cross_cache` replaces."""
     device = resolve_device(device)
-    return {"self": tuple(
-        MIXERS[spec.mixer].cache(cfg, batch, cache_len,
-                                 (cfg.num_groups,), device)
+    n = cfg.num_groups
+    state = {"self": tuple(
+        MIXERS[spec.mixer].cache(cfg, batch, cache_len, (n,), device)
         for spec in cfg.cycle)}
+    if cfg.is_encdec:
+        shape = (n, batch, cfg.encoder_seq, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        dt = L.torch_dtype(cfg.dtype)
+        state["cross"] = {"k": torch.zeros(shape, dtype=dt, device=device),
+                          "v": torch.zeros(shape, dtype=dt, device=device)}
+    return state
+
+
+def build_cross_cache(cfg: ModelConfig, params, enc_out: torch.Tensor):
+    """The decoder's cross-attention K/V from the encoder output (B, Se,
+    D): for each group, cycle position 0's ``cross`` projections, stacked
+    to (num_groups, B, Se, KV, hd), in JAX's promoted type (float32 for
+    float32 frames on a bf16 config)."""
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    B, S, _ = enc_out.shape
+    c = params["blocks"][0]["cross"]
+    ks, vs = [], []
+    for g in range(c["wk"].shape[0]):
+        cg = _group(c, g)
+        ks.append(L._proj(enc_out, cg["wk"], cg.get("bk")).reshape(
+            B, S, kv, hd))
+        vs.append(L._proj(enc_out, cg["wv"], cg.get("bv")).reshape(
+            B, S, kv, hd))
+    return {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
 def decode_step(cfg: ModelConfig, params, state, tokens, pos):
@@ -351,10 +447,14 @@ def decode_step(cfg: ModelConfig, params, state, tokens, pos):
 
     tokens: (B,) current token ids; pos: the position (int).  Returns
     (logits (B, V) float32, state); the caches in ``state`` are updated in
-    place (a recurrent mixer's new state is copied into its slot)."""
-    check_supported(cfg, decode=True)
+    place (a recurrent mixer's new state is copied into its slot).  An
+    encoder-decoder config adds the learned position and, in each block
+    with one, the cross-attention over ``state["cross"]``."""
     pos = int(pos)
     x = params["tok_embed"][tokens][:, None]              # (B,1,D)
+    if cfg.learned_pos:
+        x = x + params["pos_embed"][pos:pos + 1][None]
+    cross = state.get("cross")
     for g in range(cfg.num_groups):
         for p_idx, spec in enumerate(cfg.cycle):
             bp = _group(params["blocks"][p_idx], g)
@@ -362,6 +462,10 @@ def decode_step(cfg: ModelConfig, params, state, tokens, pos):
             h = L.apply_norm(bp["ln1"], x, cfg.norm_eps)
             x = x + MIXERS[spec.mixer].decode(bp["mixer"], h, cache, pos,
                                               cfg)
+            if "cross" in bp and cross is not None:
+                h = L.apply_norm(bp["ln_cross"], x, cfg.norm_eps)
+                x = x + L.attention_decode(bp["cross"], h, _group(cross, g),
+                                           pos, cfg, cross=True)[0]
             if spec.ffn != "none":
                 h = L.apply_norm(bp["ln2"], x, cfg.norm_eps)
                 if spec.ffn == "moe":

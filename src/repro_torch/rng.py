@@ -17,9 +17,10 @@ to ``"cuda"`` and raises without a GPU.
 
 Float draws follow ``jax/_src/random.py`` operation for operation
 (mantissa bits OR'd into 1.0, then ``- 1``, ``* (max - min) + min``,
-``max(min, .)``); ``normal`` goes through XLA's single-precision erfinv
-polynomial so the values agree to a few ulps.  Where XLA fuses a multiply
-and an add into one FMA, the port rounds once too (``_fma``), so
+``max(min, .)``); ``normal`` and ``truncated_normal`` go through XLA's
+single-precision erfinv polynomial and its ``log1p`` (``xla_math``), so
+they are bit-identical too.  Where XLA fuses a multiply and an add into
+one FMA, the port rounds once too (``_fma``, ``xla_math.fma``), so
 ``uniform`` is bit-identical.  ``permutation`` and ``choice`` without
 replacement run JAX's sort-based shuffle: rounds of fresh 32-bit keys,
 each a stable sort.
@@ -37,6 +38,7 @@ from typing import Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import xla_math
 from repro_torch.device import resolve_device
 _MASK = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -78,7 +80,10 @@ def _f64(v):
 def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
     """float32 ``a * b + c`` with one rounding, as XLA's CPU backend fuses
     it (the float32 product is exact in float64); ``b`` and ``c`` may be
-    Python floats that hold float32 values."""
+    Python floats that hold float32 values.  The float64 sum is exact,
+    so nothing is rounded twice, where the operands' bits span at most
+    53 places, as the uniform's mantissa times its width plus its lower
+    bound do; ``xla_math.fma`` rounds once for any float32 operands."""
     return (a.double() * _f64(b) + _f64(c)).float()
 
 
@@ -280,20 +285,53 @@ _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
 
 
 def erfinv(x: torch.Tensor) -> torch.Tensor:
-    """float32 erfinv through XLA's polynomial (matches jax.lax.erf_inv to
-    a few ulps; ``torch.erfinv`` is a different approximation)."""
-    w = -torch.log1p(-x * x)
+    """float32 erfinv through XLA's polynomial, bit for bit as
+    ``jax.lax.erf_inv`` on the CPU (``torch.erfinv`` is a different
+    approximation): XLA's own ``log1p`` and single-rounding FMAs
+    (``xla_math``), and a correctly rounded ``sqrt`` (torch's vectorised
+    CPU ``sqrt`` is off by an ulp on some inputs); denormals flushed to
+    zero, as XLA flushes them."""
+    x = xla_math.flush(x)
+    w = -xla_math.log1p(-x * x)
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0).double()
-    p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0]).float()
-    for c_lt, c_ge in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
-        # _fma with w and the coefficients already in float64
-        p = _fma(p, w, torch.where(lt, float(np.float32(c_lt)),
-                                   float(np.float32(c_ge))).double())
-    return torch.where(x.abs() == 1.0, x * math.inf, p * x)
+    w = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
+    coef = torch.tensor([_ERFINV_GE5, _ERFINV_LT5], dtype=torch.float32,
+                        device=x.device)[lt.long()]           # (..., 9)
+    p = coef[..., 0]
+    for i in range(1, coef.shape[-1]):
+        p = xla_math.fma(p, w, coef[..., i])
+    return torch.where(x.abs() == 1.0, x * math.inf,
+                       xla_math.flush(p * x))
 
 
 _SQRT2 = float(np.float32(math.sqrt(2.0)))
+
+# A float32 uniform takes one of 2^23 values (the 23 mantissa bits of its
+# draw), so a normal or truncated-normal draw does too.  A draw of at
+# least _TABLE_MIN elements reads its values from a table of all 2^23
+# (32 MB, built once per device and bounds by the same functions as a
+# small draw, so the values are the same): the exact erfinv costs a few
+# hundred elementwise passes, a table read one.
+_TABLE_MIN = 1 << 16
+_TABLES: dict = {}
+
+
+def _from_bits(k1: int, k2: int, n: int, device, values, table_key
+               ) -> torch.Tensor:
+    """``values(bits)`` over the n flat counters of key (k1, k2), read
+    from the table of ``values`` over every mantissa (cached under
+    ``table_key``) when n >= _TABLE_MIN."""
+    if n < _TABLE_MIN:
+        return _by_pieces(n, device, lambda s, e: values(
+            _bits_flat(k1, k2, s, e, device)))
+    key = (table_key, str(device))
+    table = _TABLES.get(key)
+    if table is None:
+        table = _by_pieces(1 << 23, device, lambda s, e: values(
+            torch.arange(s, e, dtype=torch.int64, device=device) << 9))
+        _TABLES[key] = table
+    return _by_pieces(n, device, lambda s, e: table[
+        _bits_flat(k1, k2, s, e, device) >> 9])
 
 
 def normal(key: torch.Tensor, shape: Shape = (), device="cuda"
@@ -301,34 +339,36 @@ def normal(key: torch.Tensor, shape: Shape = (), device="cuda"
     """``jax.random.normal`` in float32: sqrt(2) * erfinv(uniform(-1+, 1))."""
     device = resolve_device(device)
     shape = _shape(shape)
-    lo = torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)).item()
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     k1, k2 = _key_words(key)
-    return _by_pieces(math.prod(shape), device, lambda s, e: _SQRT2 * erfinv(
-        _uniform_from_bits(_bits_flat(k1, k2, s, e, device), lo, 1.0,
-                           device))).reshape(shape)
+    return _from_bits(k1, k2, math.prod(shape), device, lambda b: _SQRT2 * erfinv(
+        _uniform_from_bits(b, lo, 1.0, device)), ("normal",)).reshape(shape)
 
 
 def truncated_normal(key: torch.Tensor, lower: float, upper: float,
                      shape: Shape = (), device="cuda") -> torch.Tensor:
     """``jax.random.truncated_normal`` in float32, clamped to the open
-    interval (lower, upper); drawn piece by piece (:func:`_by_pieces`)."""
+    interval (lower, upper).  The uniform's bounds erf(lower / sqrt 2)
+    and erf(upper / sqrt 2) are taken on the CPU, so every device draws
+    the same values."""
     device = resolve_device(device)
     shape = _shape(shape)
-    sqrt2 = torch.tensor(_SQRT2, device=device)
-    lo = torch.tensor(lower, dtype=torch.float32, device=device)
-    hi = torch.tensor(upper, dtype=torch.float32, device=device)
-    a = torch.erf(lo / sqrt2)
-    b = torch.erf(hi / sqrt2)
-    inf = torch.tensor(math.inf, device=device)
-    lo_open, hi_open = torch.nextafter(lo, inf), torch.nextafter(hi, -inf)
+    f32 = dict(dtype=torch.float32)
+    sqrt2 = torch.tensor(_SQRT2, **f32)
+    lo = torch.tensor(lower, **f32)
+    hi = torch.tensor(upper, **f32)
+    a = torch.erf(lo / sqrt2).item()
+    b = torch.erf(hi / sqrt2).item()
+    lo_open = torch.nextafter(lo, torch.tensor(math.inf)).item()
+    hi_open = torch.nextafter(hi, torch.tensor(-math.inf)).item()
     k1, k2 = _key_words(key)
 
-    def piece(s, e):
-        u = _uniform_from_bits(_bits_flat(k1, k2, s, e, device), a, b,
-                               device)
-        return torch.clamp(sqrt2 * erfinv(u), lo_open, hi_open)
+    def values(bits):
+        u = _uniform_from_bits(bits, a, b, device)
+        return torch.clamp(_SQRT2 * erfinv(u), lo_open, hi_open)
 
-    return _by_pieces(math.prod(shape), device, piece).reshape(shape)
+    return _from_bits(k1, k2, math.prod(shape), device, values,
+                      ("truncated_normal", lower, upper)).reshape(shape)
 
 
 _SCAN_BLOCK = 16

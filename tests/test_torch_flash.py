@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ops as jkops
 from repro.kernels import ref as JREF
 from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro_torch.kernels import flash_attention as TFA
@@ -127,3 +128,52 @@ def test_library_found_built_reads_back_its_ptxas_log(tmp_path, monkeypatch):
     assert loaded.flash_attention.restype is BUILD.I
     assert loaded.flash_attention.argtypes == [BUILD.P]
     assert lib.log == "ptxas info: report" and lib.build_s == 0.0
+
+
+@pytest.mark.parametrize("dtype", sorted(TOL))
+@pytest.mark.parametrize("b,sq,sk,h,hd,causal,window", [
+    # rows 263-299 see no key, and Sk 200 pads to 256 (at 100 or 128 the
+    # padding would not show)
+    (1, 300, 200, 2, 64, True, 64),
+    (1, 300, 200, 2, 64, False, 64),
+    # an Sk under the Pallas kernel's smallest key block (8)
+    (2, 40, 5, 1, 8, True, 3)])
+def test_plain_version_matches_pallas_on_rows_that_see_no_key(
+        b, sq, sk, h, hd, causal, window, dtype):
+    """Where every score of a row is -1e30 the Pallas kernel's p are all
+    exp(0) = 1, the zero-padded keys of its key blocks included: the row
+    is sum_{k<Sk} v_k / Sk_pad.  JAX's ``kops.flash_attention`` runs it
+    interpreted here, with its own block rule."""
+    g = np.random.default_rng(sq + sk)
+    q, k, v = (g.standard_normal((b, s, h, hd)).astype(np.float32)
+               for s in (sq, sk, sk))
+    jq, jk, jv = (jnp.asarray(a, dtype) for a in (q, k, v))
+    want = np.asarray(jkops.flash_attention(jq, jk, jv, causal=causal,
+                                            window=window), np.float32)
+    tdt = getattr(torch, dtype)
+    got = TOPS._flash_attention_torch(
+        *(torch.tensor(a).to(tdt) for a in (q, k, v)), causal=causal,
+        window=window)
+    assert got.dtype == tdt
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    empty = got[:, sk - 1 + window:].float().numpy()
+    mean = v.sum(1) / TOPS.pallas_padded_keys(sk)
+    assert TOPS.pallas_padded_keys(sk) > sk      # the padding counts
+    np.testing.assert_allclose(empty, np.broadcast_to(
+        mean[:, None], empty.shape), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_plain_version_takes_mixed_types_as_pallas_does():
+    """A bf16 q against float32 K/V (a cross-attention over a float32
+    encoder output): both upcast each input and write in q's type."""
+    q, k, v = _qkv(1, 200, 2, 64, 3)
+    jq = jnp.asarray(q, jnp.bfloat16)
+    want = np.asarray(jkops.flash_attention(jq, jnp.asarray(k),
+                                            jnp.asarray(v), causal=False))
+    got = TOPS._flash_attention_torch(torch.tensor(q).bfloat16(),
+                                      torch.tensor(k), torch.tensor(v),
+                                      causal=False)
+    assert got.dtype == torch.bfloat16 and want.dtype == jq.dtype
+    np.testing.assert_allclose(got.float().numpy(), want.astype(np.float32),
+                               rtol=TOL["bfloat16"], atol=TOL["bfloat16"])

@@ -219,6 +219,56 @@ def test_flash_kernel_keeps_p_precise_where_early_causal_rows_cancel(cuda):
     assert float(share) > 1.0
 
 
+@pytest.mark.parametrize("b,sq,sk,h,hd,dtype,causal,window", [
+    # rows 263-299 see no key; Sk 200 pads to 256 in the Pallas kernel
+    (1, 300, 200, 2, 64, torch.float32, True, 64),
+    (1, 300, 200, 2, 64, torch.bfloat16, True, 64),
+    (1, 300, 200, 2, 64, torch.bfloat16, False, 64),
+    # a whole query tile of such rows (every key tile skipped), hd 96
+    # and 256, and an Sk under the Pallas kernel's smallest block
+    (2, 400, 130, 3, 96, torch.bfloat16, True, 8),
+    (1, 200, 100, 2, 256, torch.bfloat16, True, 16),
+    (1, 40, 5, 1, 8, torch.float32, True, 3)])
+def test_flash_kernel_gives_pallas_result_on_rows_that_see_no_key(
+        cuda, b, sq, sk, h, hd, dtype, causal, window):
+    """A row q >= Sk - 1 + window gets sum_{k<Sk} v_k / Sk_pad, as the
+    Pallas kernel does (and the plain version, held to it on the CPU)."""
+    g = torch.Generator(device="cpu").manual_seed(sq + sk + hd)
+    q = torch.randn(b, sq, h, hd, generator=g).to(cuda, dtype)
+    k, v = (torch.randn(b, sk, h, hd, generator=g).to(cuda, dtype)
+            for _ in range(2))
+    assert sq >= sk + window          # some rows see no key
+    want = _check_flash(cuda, q, k, v, causal, window)
+    empty = want[:, sk - 1 + window:].float()
+    mean = v.float().sum(1) / TOPS.pallas_padded_keys(sk)
+    torch.testing.assert_close(empty, mean[:, None].expand_as(empty).to(
+        dtype).float(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,causal", [
+    (torch.bfloat16, torch.float32, False),
+    (torch.bfloat16, torch.float32, True),
+    (torch.float32, torch.bfloat16, False)])
+def test_flash_kernel_takes_mixed_types_as_pallas_does(cuda, q_dtype,
+                                                       kv_dtype, causal):
+    """A bf16 q against float32 K/V (the cross-attention over a float32
+    encoder output) runs the float32 kernel on the upcast inputs and
+    returns q's type; the plain version upcasts alike."""
+    g = torch.Generator(device="cpu").manual_seed(7)
+    q = torch.randn(1, 1100, 6, 64, generator=g).to(cuda, q_dtype)
+    k, v = (torch.randn(1, 700, 6, 64, generator=g).to(cuda, kv_dtype)
+            for _ in range(2))
+    before = TOPS.flash_attention.launches
+    out = TOPS.flash_attention(q, k, v, causal=causal, window=0)
+    assert TOPS.flash_attention.launches == before + 1
+    assert out.dtype == q_dtype and out.shape == q.shape
+    want = TOPS._flash_attention_torch(q, k, v, causal=causal, window=0)
+    rtol = 0.0 if q_dtype == torch.float32 else BF16_RTOL
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=rtol,
+                               atol=1e-4)
+
+
 @pytest.mark.parametrize("hd", [264])
 def test_flash_kernel_refuses_head_dims_it_does_not_take(cuda, hd):
     q = torch.zeros(1, 8, 1, hd, device=cuda)
@@ -653,3 +703,40 @@ def test_zoo_decode_on_cuda_matches_cpu(cuda, arch):
         lg, st = MD.decode_step(cfg, params, st, toks[:, t], t)
         lg_c, st_c = MD.decode_step(cfg, pc, st_c, toks[:, t].to(cuda), t)
         _close(lg_c, lg)
+
+
+def test_whisper_decode_on_cuda_matches_cpu(cuda):
+    """The encoder-decoder's smoke config: encode, the cross cache and a
+    teacher-forced decode on both devices."""
+    from repro_torch import rng
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import model as MD
+    cfg = get_smoke_config("whisper-tiny")
+    params = MD.init_params(cfg, rng.PRNGKey(0), "cpu")
+    pc = MD.nested_params({k: v.to(cuda) for k, v in
+                           MD.flatten_params(params).items()})
+    frames = rng.normal(rng.PRNGKey(1), (2, cfg.encoder_seq, cfg.d_model),
+                        "cpu")
+    toks = rng.randint(rng.PRNGKey(2), (2, 12), 0, cfg.vocab_size, "cpu")
+    st = MD.init_decode_state(cfg, 2, 12, "cpu")
+    st_c = MD.init_decode_state(cfg, 2, 12, cuda)
+    st["cross"] = MD.build_cross_cache(cfg, params,
+                                       MD.encode(cfg, params, frames))
+    st_c["cross"] = MD.build_cross_cache(cfg, pc, MD.encode(
+        cfg, pc, frames.to(cuda)))
+    for t in range(12):
+        lg, st = MD.decode_step(cfg, params, st, toks[:, t], t)
+        lg_c, st_c = MD.decode_step(cfg, pc, st_c, toks[:, t].to(cuda), t)
+        _close(lg_c, lg)
+
+
+@pytest.mark.parametrize("n", [1000, 1 << 20])
+def test_normal_draws_on_cuda_equal_the_cpu_bit_for_bit(cuda, n):
+    """XLA's log1p and FMAs (xla_math) are elementwise float32 and
+    float64 torch ops, each correctly rounded on both devices: a direct
+    draw and a table draw give the CPU's bits."""
+    from repro_torch import rng
+    for fn in (lambda d: rng.normal(rng.PRNGKey(3), (n,), d),
+               lambda d: rng.truncated_normal(rng.PRNGKey(3), -2.0, 2.0,
+                                              (n,), d)):
+        assert torch.equal(fn(cuda).cpu(), fn("cpu"))

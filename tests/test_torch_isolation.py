@@ -1,6 +1,7 @@
 """The port stands alone: no module of src/repro_torch/ (and no line of
-chip_smoke.py) imports jax or the JAX package, and importing the CLI
-leaves jax out of sys.modules."""
+chip_smoke.py or of the port's examples, examples/*_torch.py) imports
+jax or the JAX package, and importing the CLI leaves jax out of
+sys.modules."""
 import ast
 import os
 import subprocess
@@ -11,7 +12,10 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + [
+    ROOT / "examples" / f"{name}_torch.py" for name in (
+        "quickstart", "scheme_comparison", "fl_pretrain_lm",
+        "serve_decode")]
 
 
 def _imported_roots(path: Path):

@@ -16,7 +16,7 @@ import torch
 
 from repro.configs import registry as JREG
 from repro.models import mamba as JM
-from repro_torch import rng
+from repro_torch import rng, xla_math as XM
 from repro_torch.configs import registry as TREG
 from repro_torch.models import mamba as TM
 
@@ -49,9 +49,9 @@ def _assert_rel(got, want, rel=REL, msg=""):
 
 
 def test_init_matches_jax():
-    """Each leaf's shape and type as JAX's; the constants (``a_log`` in
-    XLA's log, ``b_dt``, ``d_skip``, ``conv_b``) bit for bit, the drawn
-    weights within rng's few-ulp normal bound."""
+    """Each leaf's shape and type as JAX's, and every leaf bit for bit:
+    the constants (``a_log`` in XLA's log, ``b_dt``, ``d_skip``,
+    ``conv_b``) and the drawn weights (XLA's erfinv, ``xla_math``)."""
     cfg_j, cfg_t = _cfgs()
     pj = JM.init_mamba(jax.random.PRNGKey(3), cfg_j)
     pt = TM.init_mamba(rng.PRNGKey(3), cfg_t, device=CPU)
@@ -60,16 +60,12 @@ def test_init_matches_jax():
         a = np.asarray(v)
         assert tuple(pt[k].shape) == a.shape and str(pt[k].dtype).endswith(
             str(a.dtype)), k
-        if k in ("a_log", "b_dt", "d_skip", "conv_b"):
-            np.testing.assert_array_equal(pt[k].numpy(), a, err_msg=k)
-        else:
-            np.testing.assert_allclose(pt[k].numpy(), a, rtol=0, atol=1e-6,
-                                       err_msg=k)
+        np.testing.assert_array_equal(pt[k].numpy(), a, err_msg=k)
 
 
 def test_xla_log_matches_jnp_log_on_the_init_range():
     ks = np.arange(1, 257, dtype=np.float32)
-    np.testing.assert_array_equal(TM.xla_log(ks),
+    np.testing.assert_array_equal(XM.log(torch.tensor(ks)).numpy(),
                                   np.asarray(jnp.log(jnp.asarray(ks))))
 
 

@@ -57,6 +57,19 @@ def _tokens(cfg, b, s, seed):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, s))
 
 
+def _shapes(tree, prefix=""):
+    """{path: (shape, dtype name)} of a tree of torch tensors or JAX
+    arrays or shape structs."""
+    if isinstance(tree, dict):
+        return {k: v for key in tree
+                for k, v in _shapes(tree[key], f"{prefix}/{key}").items()}
+    if isinstance(tree, (tuple, list)):
+        return {k: v for i, t in enumerate(tree)
+                for k, v in _shapes(t, f"{prefix}/{i}").items()}
+    name = str(tree.dtype).replace("torch.", "")
+    return {prefix: (tuple(tree.shape), name)}
+
+
 def _leaves(tree, prefix=""):
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -86,8 +99,22 @@ def test_init_params_match_jax(arch):
     assert got.keys() == want.keys()
     for name in want:
         assert got[name].shape == want[name].shape, name
-        np.testing.assert_allclose(got[name], want[name], rtol=0, atol=1e-6,
-                                   err_msg=name)
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "qwen1.5-32b",
+                                  "phi-3-vision-4.2b"])
+def test_init_params_of_the_other_dense_archs_match_jax(arch):
+    """With ARCHS here, the zoo's in test_torch_zoo.py and whisper's in
+    test_torch_whisper.py, every arch of the registry: each leaf at the
+    smoke config bit for bit."""
+    _, cfg_t = _cfgs(arch)
+    got = dict(_leaves(interop.model_params_to_numpy(
+        TMD.init_params(cfg_t, rng.PRNGKey(0), CPU))))
+    want = dict(_leaves(jax.tree.map(np.asarray, _jax_params(arch))))
+    assert got.keys() == want.keys()
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -247,22 +274,37 @@ def test_prefix_embeddings_match_jax():
     got = TMD.logits_fn(cfg_t, params_t, torch.tensor(toks),
                         prefix_embeddings=torch.tensor(prefix))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="prefix"):
-        TMD.init_decode_state(cfg_t, 2, 24, CPU)
+    # decode never reads the prefix, in either package: the same steps
+    state_j = JMD.init_decode_state(cfg_j, 2, 4)
+    state_t = TMD.init_decode_state(cfg_t, 2, 4, CPU)
+    for t in range(3):
+        lj, state_j = JMD.decode_step(cfg_j, params_j, state_j,
+                                      jnp.asarray(toks[:, t]), jnp.int32(t))
+        lt, state_t = TMD.decode_step(cfg_t, params_t, state_t,
+                                      torch.tensor(toks[:, t]), t)
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=1e-4,
+                                   atol=1e-4)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "jamba-v0.1-52b",
                                   "xlstm-1.3b", "whisper-tiny"])
 def test_unported_blocks_raise(arch):
-    """Whisper's encoder-decoder still raises.  The MoE, Mamba and xLSTM
-    blocks are ported (tests/test_torch_zoo.py); on their archs a part
-    still missing, learned positions, raises."""
+    """Nothing raises any more: whisper's encoder-decoder, and learned
+    positions on the MoE, Mamba and xLSTM archs, give the JAX package's
+    parameter tree (every path, shape and type) and its decode cache, and
+    take a decode step with finite logits."""
     cfg = TREG.get_smoke_config(arch)
+    cfg_j = JREG.get_smoke_config(arch)
     if not cfg.is_encdec:
-        TMD.check_supported(cfg)
-        TMD.check_supported(cfg, decode=True)
-        cfg = cfg.replace(learned_pos=True)
-    with pytest.raises(NotImplementedError, match="the rest of the model zoo"):
-        TMD.init_params(cfg, rng.PRNGKey(0), CPU)
-    with pytest.raises(NotImplementedError, match="the rest of the model zoo"):
-        TMD.init_decode_state(cfg, 1, 4, CPU)
+        cfg, cfg_j = (c.replace(learned_pos=True) for c in (cfg, cfg_j))
+    params = TMD.init_params(cfg, rng.PRNGKey(0), CPU)
+    state = TMD.init_decode_state(cfg, 1, 4, CPU)
+    for got, want in (
+            (params, jax.eval_shape(lambda k: JMD.init_params(cfg_j, k),
+                                    jax.random.PRNGKey(0))),
+            (state, jax.eval_shape(lambda: JMD.init_decode_state(cfg_j, 1,
+                                                                 4)))):
+        assert _shapes(got) == _shapes(want)
+    assert ("pos_embed" in params) and (("enc" in params) == cfg.is_encdec)
+    logits, _ = TMD.decode_step(cfg, params, state, torch.tensor([3]), 0)
+    assert bool(torch.isfinite(logits).all())
