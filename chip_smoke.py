@@ -8,9 +8,11 @@
 2. Builds the port's two CUDA sources from the checkout (one nvcc each,
    started together) and prints the build seconds, the ptxas report
    (registers and spills per kernel) and, by cuobjdump, the
-   HMMA (tensor-core) instructions of each flash-attention kernel; each
-   bf16 instantiation must have some.  cuobjdump and cu++filt are taken
-   from the directory of the nvcc that built the kernels.
+   tensor-core instructions (HMMA, HGMMA) of each flash-attention
+   kernel; each bf16 (``flash_fwd_mma``) and each float32
+   (``flash_fwd_tf32``, split TF32) instantiation must have some.
+   cuobjdump and cu++filt are taken from the directory of the nvcc that
+   built the kernels.
 3. Kernel phases: holds each kernel's wrapper (``ops.lloyd_step``,
    ``ops.kmeans_assign``, ``ops.flash_attention``, the calls the paths
    make) against its plain PyTorch version on the card, at the paths'
@@ -22,8 +24,10 @@
    TFLOP/s (the useful operations over its time), SDPA's share of the
    same error bound and, for bf16, the share of the plain version with p
    rounded once to bf16 before P.V (a single bf16 P, which the kernel
-   avoids by carrying p as two bf16 terms).  The flash shapes include
-   Sq != Sk, a bf16 q against float32 K/V (the float32 kernel) and rows
+   avoids by carrying p as two bf16 terms), for float32 inputs the bound
+   on the CUDA cores beside the split-TF32 one (``fp32_core_bound_ms``).
+   The flash shapes include Sq != Sk, a bf16 q against float32 K/V (the
+   float32 kernel), the float32 granite shape and rows
    that see no key (the Pallas kernel's sum v / Sk_pad).  Then one
    2^20-element ``rng.normal`` draw on the card against the CPU: the
    count of elements that differ is printed.
@@ -223,9 +227,11 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): float32
-# outside the tensor cores, bf16 on the tensor cores, and HBM3 bandwidth
+# outside the tensor cores, bf16 and TF32 on the tensor cores, and HBM3
+# bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 494.7e12
 PEAK_HBM_BYTES = 3.35e12
 
 # (label, N, F, K, R, dtype, seed); "main" is the shape stage 1 of the
@@ -523,7 +529,7 @@ SELECTION_CHECK_ROUNDS = 10
 # heads after the GQA expansion), "window" starcoder2-3b's sliding window
 # at 8,192 tokens, "phi3v" phi-3-vision's head_dim 96 (32 heads) at
 # 4,096 tokens (the vlm serving path's prefill), "ragged" a length off the
-# 64-key tiles with head_dim 96 in fp32 (the CUDA-core instantiation),
+# 64-key tiles with head_dim 96 in fp32 (B 2 x H 3: a small grid),
 # "hd28" qwen2-0.5b's smoke config (4 heads of head_dim 28, which the
 # wrapper zero-pads to 32) at 2,048 tokens, "granite" and "jamba" the zoo
 # serving path's 4,096-token prefills (granite-moe: 24 heads of 64 after
@@ -535,7 +541,8 @@ SELECTION_CHECK_ROUNDS = 10
 # forward over a float32 encoder output (a bf16 q against float32 K/V,
 # which takes the float32 kernel), "nokey" a causal window whose rows
 # 263-299 see no key (the Pallas kernel's sum v / Sk_pad there; Sk 200
-# pads to 256)
+# pads to 256), "granite-f32" the granite shape in float32 (what the zoo
+# serving path's float32 rule gives the kernel: 32 launches a prefill)
 FLASH_SHAPES = (
     ("qwen2", 1, 4096, 4096, 14, 64, torch.bfloat16, torch.bfloat16, True,
      0),
@@ -560,10 +567,13 @@ FLASH_SHAPES = (
     ("nokey", 1, 300, 200, 2, 64, torch.float32, torch.float32, True, 64),
     ("nokey-bf16", 1, 300, 200, 2, 64, torch.bfloat16, torch.bfloat16,
      True, 64),
+    ("granite-f32", 1, 4096, 4096, 24, 64, torch.float32, torch.float32,
+     True, 0),
 )
 # per-element bound against the plain version, |out - want| <= atol +
 # rtol * |want|.  Both compute in fp32 and differ only in the order of
-# the fp32 sums (about 1e-6 here, under atol = 1e-4); a bf16 output then
+# the fp32 sums (about 1e-6 here, under atol = 1e-4; the float32 kernel's
+# split-TF32 products are within about 2^-20 of exact); a bf16 output then
 # rounds the two fp32 values to at most one bf16 unit apart, and one unit
 # is at most 2^-7 of the value (7 stored mantissa bits), so rtol = 2^-7.
 # Outputs are averages of unit-variance values over up to 8,192 keys
@@ -850,17 +860,22 @@ def flash_ops(b, sq, sk, h, hd, causal, window):
     return 4 * hd * b * h * flash_pairs(sq, sk, causal, window)
 
 
-def flash_bound(b, sq, sk, h, hd, q_dtype, kv_dtype, causal, window):
+def flash_bound(b, sq, sk, h, hd, q_dtype, kv_dtype, causal, window,
+                peak=None):
     """Least time: q, k, v read once and o (q's type) written once,
     against 4*hd flops per unmasked (query, key) pair per head (two
     products), on the bf16 tensor cores where every input is bf16, else
-    on the fp32 CUDA cores."""
+    at the tensor cores' float32-accurate rate: three TF32 products per
+    product (split TF32, the float32 kernel's scheme; one TF32 product
+    misses FLASH_TOL), PEAK_TF32_FLOPS / 3.  ``peak`` overrides the rate
+    (PEAK_FP32_FLOPS gives the CUDA cores' bound)."""
     def esize(dt):
         return torch.tensor([], dtype=dt).element_size()
     moved = 2 * b * h * hd * (sq * esize(q_dtype) + sk * esize(kv_dtype))
     ops = flash_ops(b, sq, sk, h, hd, causal, window)
-    peak = (PEAK_BF16_FLOPS if q_dtype == kv_dtype == torch.bfloat16
-            else PEAK_FP32_FLOPS)
+    if peak is None:
+        peak = (PEAK_BF16_FLOPS if q_dtype == kv_dtype == torch.bfloat16
+                else PEAK_TF32_FLOPS / 3)
     t_bytes, t_ops = moved / PEAK_HBM_BYTES, ops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -933,6 +948,10 @@ def check_flash(OPS, dev, label, b, sq, sk, h, hd, q_dtype, kv_dtype,
                             .max())
         single = f" single_bf16_p_share_of_bound={one_p_share!r}"
         del one_p
+    else:
+        core_ms, _ = flash_bound(b, sq, sk, h, hd, q_dtype, kv_dtype, causal,
+                                 window, peak=PEAK_FP32_FLOPS)
+        single = f" fp32_core_bound_ms={core_ms!r}"
     ms = median_ms(lambda: OPS.flash_attention(q, k, v, causal=causal,
                                                window=window))
     plain_ms = median_ms(lambda: OPS._flash_attention_torch(
@@ -1295,11 +1314,15 @@ def serve_zoo_model(OPS, cuda, arch, layers, prefill_len, steps, gate_steps,
     # ---- the rules, on the float32 model at the same width -------------
     fcfg = cfg.replace(dtype="float32")
     params = init(fcfg)
+    before = OPS.flash_attention.launches
     if per_block:
         per_block_agreement(cuda, fcfg, params, gate_steps)
     else:
         agreement(OPS, cuda, arch, fcfg, params, prefill_len, gate_steps,
                   gate=True)
+    print(f"{tag} float32 rule: flash_attention launches="
+          f"{OPS.flash_attention.launches - before} (float32 kernel)",
+          flush=True)
     del params
     torch.cuda.empty_cache()
     return launches
@@ -1381,7 +1404,7 @@ def whisper_serving_path(OPS, cuda) -> int:
     torch.cuda.synchronize()
     cross_s = time.perf_counter() - t
     print(f"{tag} encode: B={WHISPER_CLIPS} frames={cfg.encoder_seq} "
-          f"float32 flash_attention launches={launches} (flash_fwd_fp32) "
+          f"float32 flash_attention launches={launches} (flash_fwd_tf32) "
           f"wall_s first={first_s!r} warm={warm_s!r} frames_per_s="
           f"{WHISPER_CLIPS * cfg.encoder_seq / warm_s!r}; cross cache "
           f"{cross['k'].dtype} {cross_s!r} s", flush=True)
@@ -1422,6 +1445,7 @@ def whisper_serving_path(OPS, cuda) -> int:
     ref = json.loads(WHISPER_REFERENCE.read_text())
     fcfg = cfg.replace(dtype="float32")
     params = MD.init_params(fcfg, rng.PRNGKey(0), cuda)
+    before = OPS.flash_attention.launches
     sv = ref["serve"]
     out = serve(fcfg, params, sv["batch"], sv["prompt_len"], sv["gen"],
                 cuda)
@@ -1450,6 +1474,9 @@ def whisper_serving_path(OPS, cuda) -> int:
             "package's")
     require(gap <= WHISPER_LOGIT_TOL * scale, f"{tag} float32: logits "
             f"{gap} off the JAX package's (scale {scale})")
+    print(f"{tag} float32 model: flash_attention launches="
+          f"{OPS.flash_attention.launches - before} (float32 kernel; serve "
+          "and forward)", flush=True)
     del params, logits
     torch.cuda.empty_cache()
     return launches
@@ -2951,8 +2978,9 @@ def ptxas_summary(BUILD, log: str):
 
 
 def sass_mma_counts(BUILD, lib_path):
-    """{mangled kernel name: number of HMMA (tensor-core) instructions} in
-    a built library's SASS, by cuobjdump."""
+    """{mangled kernel name: number of tensor-core instructions (HMMA, the
+    mma.sync family, and HGMMA, wgmma)} in a built library's SASS, by
+    cuobjdump."""
     out = subprocess.run([toolkit(BUILD, "cuobjdump"), "-sass",
                           str(lib_path)], capture_output=True, text=True,
                          timeout=300)
@@ -2962,7 +2990,7 @@ def sass_mma_counts(BUILD, lib_path):
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
             counts[fn] = 0
-        elif fn is not None and "HMMA" in line:
+        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
             counts[fn] += 1
     return counts
 
@@ -3006,12 +3034,16 @@ def main() -> int:
               + "; ".join(ptxas_summary(BUILD, lib.log)), flush=True)
     hmma = sass_mma_counts(BUILD, FA.LIBRARY.path())
     names = demangle(BUILD, hmma)
-    print("HMMA instructions in the SASS of flash_attention.cu: "
+    print("tensor-core (HMMA, HGMMA) instructions in the SASS of "
+          "flash_attention.cu: "
           + "; ".join(f"{names[fn]}={n}" for fn, n in sorted(hmma.items())),
           flush=True)
-    mma_fns = [fn for fn in hmma if "flash_fwd_mma" in fn]
-    require(bool(mma_fns) and all(hmma[fn] > 0 for fn in mma_fns),
-            f"the bf16 instantiations do not all run HMMA: {hmma}")
+    for kind, what in (("flash_fwd_mma", "bf16"), ("flash_fwd_tf32",
+                                                   "float32")):
+        fns = [fn for fn in hmma if kind in fn]
+        require(bool(fns) and all(hmma[fn] > 0 for fn in fns),
+                f"the {what} instantiations do not all run tensor-core "
+                f"instructions: {hmma}")
 
     cuda = torch.device("cuda")
 

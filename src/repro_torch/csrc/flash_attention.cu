@@ -25,7 +25,10 @@
 // under the causal mask) against reading q, k, v and writing o once.  At
 // qwen2-0.5b's prefill (S = 4096, hd = 64, bf16, causal) that is about
 // 1,000 flops per byte, so the operations bound it: 989 TFLOP/s on the
-// bf16 tensor cores (67 TFLOP/s in fp32 on the CUDA cores).
+// bf16 tensor cores.  float32 inputs (about 500 flops per byte there) are
+// bound by the float32-accurate rate of the tensor cores: three TF32
+// products per product (below), 495 / 3 = 165 TFLOP/s, against 67 TFLOP/s
+// on the CUDA cores.
 //
 // bf16 inputs: both products on the tensor cores (flash_fwd_mma).
 //  * One block of 4 warps per (query tile of 64 rows, head, batch); warp w
@@ -80,13 +83,57 @@
 //    spills a few bytes.
 //  * Deterministic: no atomics, a fixed order of every sum.
 //
-// fp32 inputs: the CUDA-core kernel (flash_fwd_fp32).  One block of 128
-// threads per 64-row query tile, the same key loop, masks and skipping;
-// q scaled in fp32 before the product, fp32 tiles in shared memory
-// (rows padded to hd + 1), thread (rg, cg) = (tid / 8, tid % 8) owns query
-// rows 4rg..4rg+3 and key columns cg, cg+8, ...; p goes through shared
-// memory to the P.V product.  It can reach at best the fp32 CUDA-core
-// rate.
+// fp32 inputs: both products on the tensor cores in split TF32
+// (flash_fwd_tf32), the bf16 kernel's structure with fp32 operands.
+//  * Split TF32.  One TF32 product keeps 10 stored mantissa bits of each
+//    operand (2^-11 relative); that alone exceeds the float32 bound (2.4-52x
+//    at S 512, hd 64, by the emulation in tests/test_torch_flash.py).
+//    So each operand x is split as hi = tf32(x) (round to nearest, ties
+//    away, as cvt.rna.tf32.f32) and lo = x - hi (exact in fp32), and each
+//    product is a_lo.b_hi + a_hi.b_lo + a_hi.b_hi in fp32 accumulators,
+//    the small terms first (CUTLASS's 3xTF32).  The dropped a_lo.b_lo is
+//    at most 2^-22 of a.b, and the tensor core reads lo to 10 bits (2^-21
+//    of x): each product is within about 2^-20 of exact, far under the
+//    1e-4 bound (tests/test_torch_gpu.py's witness: a single TF32 product
+//    fails it).  q is scaled in fp32 and then split, as the Pallas kernel
+//    scales it before the product; p is split in fp32 and l summed from
+//    the fp32 p.
+//  * Short sums on the tensor core.  The tensor core does not round its
+//    fp32 accumulation to nearest (published measurements of earlier
+//    NVIDIA parts find truncation), so a long chain of MMAs into one
+//    accumulator drifts one way: with P.V summed over a whole 1,500-key
+//    row in one accumulator the kernel read 0.060 of the bound at
+//    whisper's encoder shape, 8x the CUDA-core kernel's 0.0076 (PERF.md).
+//    So S's big terms (a_hi.b_hi) and small terms go to two accumulators,
+//    added once a key tile, and each key tile's P.V is summed apart and
+//    added to acc (acc * corr + tile, one fp32 fma), up to hd 128 (at hd
+//    256 the tile sums do not fit in registers and P.V accumulates in
+//    acc): 0.008 there.
+//  * mma.sync.m16n8k8 (tf32 in, fp32 accumulate), 4 warps x 16 query rows
+//    a block, key tiles of 64 keys at hd <= 64 and 32 above (the fp32
+//    tiles take twice the bf16 ones' shared memory: 94 KB at hd 64, two
+//    blocks an SM).  2 warps x 16 rows ran slower at every timed shape,
+//    and 64-key tiles at hd 96 within 2 % (PERF.md).  Q.K^T contracts
+//    head_dim in 16-column chunks: lane (g, t) reads 16 bytes at column
+//    4t of rows g and g + 8 of Q and of key g of each n8 tile, and k step
+//    s of the chunk takes columns 4t + 2s and 4t + 2s + 1 as its k indices
+//    t and t + 4 (a fixed permutation of the contraction, the same for Q
+//    and K).
+//  * P in registers: S's accumulator holds keys 2t and 2t + 1 of each
+//    8-key slice where P's A fragment wants k indices t and t + 4; the
+//    kernel takes them as such and reads V's B fragment from rows 2t and
+//    2t + 1, so P feeds P.V without a trip through shared memory.
+//  * Q is split once into registers at hd <= 64; above that it is read and
+//    split from shared memory at each key tile (at hd 96 Q in registers
+//    took 255 registers and ran slower).  K and V are read from shared
+//    memory as fp32 and split by each warp as it uses them.
+//  * The rest as in flash_fwd_mma: a 2-stage cp.async ring (rows past Sq
+//    or Sk zero-filled), masks only on key tiles that cross a mask edge,
+//    wholly masked key tiles skipped, exp2 with log2(e) folded into s,
+//    query tiles walked from the last, hd 64, 96, 128 and 256 with
+//    constant loop bounds and other multiples of 8 padded, the no-key
+//    epilogue, no atomics.  Shared strides (16 mod 32 floats for Q and K,
+//    4 mod 16 for V) keep the fragment loads free of bank conflicts.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -509,187 +556,403 @@ cudaError_t dispatch_mma(const void* q, const void* k, const void* v, void* o,
 }
 
 // ------------------------------------------------------------------------
-// fp32: CUDA cores
+// fp32: tensor cores in split TF32
 // ------------------------------------------------------------------------
 
-constexpr int BQ = 64;            // query rows per block
-constexpr int NT = 128;           // threads per block
-constexpr int BK32 = 64;          // keys per tile
-constexpr int RPT = 4;            // query rows per thread
-constexpr int CPT = BK32 / 8;     // key columns per thread
-constexpr int PS = BK32 + 1;      // padded row stride of the p tile
+// Warps per block of the fp32 kernel (16 query rows each); 2 warps were
+// slower at every timed shape, the ragged one with its 108 blocks too.
+constexpr int TF_WARPS = 4;
+constexpr int TF_NT = 32 * TF_WARPS;     // threads per block
+constexpr int TF_BQ = 16 * TF_WARPS;     // query rows per block
+constexpr int TF_BK = 64;                // keys per tile at hd <= 64
+constexpr int TF_BK_WIDE = 32;           // at hd > 64
 
-// Stage rows [s0, s0 + 64) of head h of batch b of t (B, S, H, hd) into
-// dst with row stride ds, times mul; rows >= S read as 0.
-__device__ __forceinline__ void stage(const float* t, float* dst, int ds,
-                                      int b, int h, int s0, int S, int H,
-                                      int hd, float mul) {
-  for (int i = threadIdx.x; i < 64 * hd; i += NT) {
-    const int r = i / hd, d = i % hd, s = s0 + r;
-    dst[r * ds + d] =
-        s < S ? t[(((size_t)b * S + s) * H + h) * hd + d] * mul : 0.f;
+// Shared row strides in floats for a contraction of hdr (a multiple of
+// 16) columns: Q and K rows are read as 16-byte chunks (4t of row g), so
+// their stride is 16 mod 32 floats and a quarter warp's 8 chunks fall in
+// 8 bank groups; V is read one float a lane (row 2t, column g), so its
+// stride is 4 mod 16 and 2t * stride + g covers the 32 banks.
+__host__ __device__ constexpr int tf_qk_stride(int hdr) {
+  return hdr % 32 ? hdr : hdr + 16;
+}
+__host__ __device__ constexpr int tf_v_stride(int hdr) { return hdr + 4; }
+__host__ __device__ constexpr int tf_smem_bytes(int hdr, int bk) {
+  return (int)sizeof(float) * ((TF_BQ + 2 * bk) * tf_qk_stride(hdr) +
+                               2 * bk * tf_v_stride(hdr));
+}
+
+// d += a (16x8 tf32, row) . b (8x8 tf32, col), fp32 accumulator
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a . b in split TF32: a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, the small
+// terms first (a_lo.b_lo is dropped)
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+// x = hi + lo: hi is x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to
+// nearest, ties away from zero: half a unit of the 13 dropped bits added
+// to the magnitude, then those bits cleared), lo = x - hi, exact in fp32.
+// The tensor core reads lo as a TF32 operand, which drops its 13 low bits:
+// at most 2^-10 of lo, which is at most 2^-11 of x.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// The A fragments of the two k8 steps of one 16-column chunk of q * scale,
+// split: p points at row g, column 4t of the chunk (row g + 8 is 8 * rs
+// further).  Step s takes columns 4t + 2s (k index t) and 4t + 2s + 1 (k
+// index t + 4), so one 16-byte load per row serves both steps; K's B
+// fragments take the same columns.
+__device__ __forceinline__ void q_frags(const float* p, int rs, float scale,
+                                        uint32_t (&hi)[2][4],
+                                        uint32_t (&lo)[2][4]) {
+  const float4 r0 = *reinterpret_cast<const float4*>(p);
+  const float4 r1 = *reinterpret_cast<const float4*>(p + 8 * rs);
+  const float x[2][4] = {{r0.x, r1.x, r0.y, r1.y}, {r0.z, r1.z, r0.w, r1.w}};
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(x[s][i] * scale, hi[s][i], lo[s][i]);
+}
+
+// One 16-column chunk of one n8 tile of S = Q.K^T: K's 16 bytes at kp
+// (key g, column 4t), split, against Q's split A fragments of the chunk;
+// a_hi.b_hi goes to sb, a_lo.b_hi + a_hi.b_lo to ss
+__device__ __forceinline__ void s_chunk(float (&sb)[4], float (&ss)[4],
+                                        const float* kp,
+                                        const uint32_t (&ah)[2][4],
+                                        const uint32_t (&al)[2][4]) {
+  const float4 kr = *reinterpret_cast<const float4*>(kp);
+  uint32_t bh[4], bl[4];
+  split_tf32(kr.x, bh[0], bl[0]);
+  split_tf32(kr.y, bh[1], bl[1]);
+  split_tf32(kr.z, bh[2], bl[2]);
+  split_tf32(kr.w, bh[3], bl[3]);
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    mma_tf32(ss, al[x], bh[2 * x], bh[2 * x + 1]);
+    mma_tf32(ss, ah[x], bl[2 * x], bl[2 * x + 1]);
+    mma_tf32(sb, ah[x], bh[2 * x], bh[2 * x + 1]);
   }
 }
 
-// HDMAX bounds hd (a multiple of 8, at most HDMAX): it sizes the
-// per-thread accumulator, acc[RPT][HDMAX / 8].
-template <int HDMAX>
-__global__ void __launch_bounds__(NT)
-flash_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, float* __restrict__ o, int H,
-               int Sq, int Sk, int hd, float scale, int causal, int window,
-               int sk_pad) {
-  constexpr int NJ = HDMAX / 8;
-  extern __shared__ float smem[];
-  const int QS = hd + 1;
-  float* qs = smem;                        // BQ x QS, scaled q
-  float* ks = qs + BQ * QS;                // BK32 x QS
-  float* vs = ks + BK32 * QS;              // BK32 x hd
-  float* ps = vs + BK32 * hd;              // BQ x PS
+// Copy rows [s0, s0 + ROWS) of head h of batch b of t (B, S, H, hd) into
+// dst (row stride rs floats) as 16-byte cp.async chunks; rows >= S are
+// zero-filled.
+template <int ROWS, int NT>
+__device__ __forceinline__ void copy_tile_f32(const float* t, float* dst,
+                                              int rs, int b, int h, int s0,
+                                              int S, int H, int hd) {
+  const size_t row_stride = (size_t)H * hd;
+  const float* base = t + (size_t)b * S * row_stride + (size_t)h * hd;
+  const int cpr = hd / 4;                       // chunks per row
+  for (int i = threadIdx.x; i < ROWS * cpr; i += NT) {
+    const int r = i / cpr, c = i - r * cpr, s = s0 + r;
+    const bool valid = s < S;
+    cp_async16(dst + r * rs + 4 * c,
+               base + (size_t)(valid ? s : 0) * row_stride + 4 * c, valid);
+  }
+}
 
-  const int qt = gridDim.x - 1 - blockIdx.x;   // longest rows first
+// HDP bounds hd, BKT is the key tile, QREG keeps Q's split A fragments in
+// registers for the whole key loop (else they are read and split from
+// shared memory at each key tile), PAD as in flash_fwd_mma.  TLOC (hd <=
+// 128) sums each key tile's P.V apart before adding it to acc.
+template <int HDP, int BKT, bool QREG, bool PAD>
+__global__ void __launch_bounds__(TF_NT)
+flash_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ o, int H,
+               int Sq, int Sk, int hd_arg, float scale, int causal,
+               int window, int sk_pad) {
+  constexpr int NT = TF_NT, BQ = TF_BQ;
+  constexpr int NKC = HDP / 16;     // 16-column chunks of Q.K^T (2 k8 steps)
+  constexpr int NSN = BKT / 8;      // n8 tiles of S (keys)
+  constexpr int NON = HDP / 8;      // n8 tiles of O (head_dim)
+  constexpr bool TLOC = HDP <= 128;  // key-tile sums of O apart (registers)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int hd = PAD ? hd_arg : HDP;
+  const int hdr = PAD ? (hd + 15) & ~15 : HDP;  // contraction padded to 16
+  const int RS = tf_qk_stride(hdr), RV = tf_v_stride(hdr);
+  float* qs = reinterpret_cast<float*>(smem_raw);  // BQ rows, stride RS
+  float* ks = qs + BQ * RS;                      // 2 stages x BKT rows, RS
+  float* vs = ks + 2 * BKT * RS;                 // 2 stages x BKT rows, RV
+
+  const int qt = gridDim.x - 1 - blockIdx.x;    // longest rows first
   const int h = blockIdx.y, b = blockIdx.z;
   const int q0 = qt * BQ;
-  const int tid = threadIdx.x, rg = tid / 8, cg = tid % 8;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;        // mma fragment row / column
 
-  // q * scale in fp32, as the Pallas kernel scales before the product
-  stage(q, qs, QS, b, h, q0, Sq, H, hd, scale);
+  // zero the padded contraction columns [hd, hdr) of Q's and K's rows once
+  // (hdr - hd is 8); the copies never write them
+  if (PAD && hdr > hd)
+    for (int r = tid; r < BQ + 2 * BKT; r += NT) {
+      float4* z = reinterpret_cast<float4*>(qs + r * RS + hd);
+      z[0] = z[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
 
+  // key tiles that hold a key some row of this query tile may see
   int k_lo = 0, k_hi = Sk;
   if (window > 0 && q0 - window + 1 > 0) k_lo = q0 - window + 1;
   if (causal && q0 + BQ < k_hi) k_hi = q0 + BQ;
-  const int kt_lo = k_lo / BK32, kt_hi = (k_hi + BK32 - 1) / BK32;
+  const int kt_lo = k_lo / BKT, kt_hi = (k_hi + BKT - 1) / BKT;
 
-  float m[RPT], l[RPT], acc[RPT][NJ];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+  copy_tile_f32<BQ, NT>(q, qs, RS, b, h, q0, Sq, H, hd);
+  if (kt_lo < kt_hi) {
+    copy_tile_f32<BKT, NT>(k, ks, RS, b, h, kt_lo * BKT, Sk, H, hd);
+    copy_tile_f32<BKT, NT>(v, vs, RV, b, h, kt_lo * BKT, Sk, H, hd);
   }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  // q * scale in fp32 (the Pallas kernel scales before the product), split
+  const float* qa = qs + (warp * 16 + g) * RS + 4 * t4;
+  uint32_t qh[QREG ? NKC : 1][2][4], ql[QREG ? NKC : 1][2][4];
+  if constexpr (QREG) {
+#pragma unroll
+    for (int c = 0; c < NKC; ++c)
+      if (!PAD || 16 * c < hdr) q_frags(qa + 16 * c, RS, scale, qh[c], ql[c]);
+  }
+
+  // s' = s * log2(e) in fp32 with s = (q * scale).k; m is the running max
+  // of s' and p = 2^(s' - m), so that a row that has seen only masked keys
+  // has s' - m = NEG_INF - NEG_INF = 0 exactly, as in the Pallas kernel
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // rows g, g + 8
+  float acc[NON][4];
+#pragma unroll
+  for (int j = 0; j < NON; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  // lane offsets: K row g of each n8 tile at column 4t of each chunk; V
+  // rows 2t and 2t + 1 of each 8-key slice at column g of each n8 tile
+  const int k_off = g * RS + 4 * t4, v_off = 2 * t4 * RV + g;
+  const int row0 = q0 + warp * 16 + g;          // this thread's first row
 
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int k0 = kt * BK32;
-    __syncthreads();                   // the last tile's k, v and p are used
-    stage(k, ks, QS, b, h, k0, Sk, H, hd, 1.f);
-    stage(v, vs, hd, b, h, k0, Sk, H, hd, 1.f);
-    __syncthreads();
-
-    float s[RPT][CPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < hd; ++d) {
-      float qv[RPT], kv[CPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) qv[i] = qs[(rg * RPT + i) * QS + d];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) kv[j] = ks[(cg + 8 * j) * QS + d];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    const int st = (kt - kt_lo) & 1, k0 = kt * BKT;
+    if (kt > kt_lo) {
+      cp_async_wait_all();      // tile kt has landed (this thread's copies)
+      __syncthreads();          // ... everyone's, and stage st ^ 1 is free
     }
+    if (kt + 1 < kt_hi) {
+      copy_tile_f32<BKT, NT>(k, ks + (st ^ 1) * BKT * RS, RS, b, h, k0 + BKT,
+                             Sk, H, hd);
+      copy_tile_f32<BKT, NT>(v, vs + (st ^ 1) * BKT * RV, RV, b, h, k0 + BKT,
+                             Sk, H, hd);
+      cp_async_commit();
+    }
+    const float* kst = ks + st * BKT * RS + k_off;
+    const float* vst = vs + st * BKT * RV + v_off;
 
+    // ---- S = Q.K^T (16 rows x BKT keys per warp), split TF32 ----
+    // a_hi.b_hi into s, a_lo.b_hi + a_hi.b_lo into ss, added once a tile
+    float s[NSN][4], ss[NSN][4];
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = rg * RPT + i, qpos = q0 + r;
-      float mx = NEG_INF;
+    for (int j = 0; j < NSN; ++j)
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int kpos = k0 + cg + 8 * j;
-        bool ok = kpos < Sk;
-        if (causal) ok = ok && kpos <= qpos;
-        if (window > 0) ok = ok && kpos > qpos - window;
-        if (!ok) s[i][j] = NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
+      for (int e = 0; e < 4; ++e) s[j][e] = ss[j][e] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NKC; ++c) {
+      if (PAD && 16 * c >= hdr) break;          // block-uniform
+      uint32_t ah[2][4], al[2][4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int x = 0; x < 2; ++x)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            ah[x][i] = qh[c][x][i];
+            al[x][i] = ql[c][x][i];
+          }
+      } else {
+        q_frags(qa + 16 * c, RS, scale, ah, al);
       }
-      // the row's max over its 8 lanes (lanes 8rg'..8rg'+7 of the warp)
+#pragma unroll
+      for (int j = 0; j < NSN; ++j)
+        s_chunk(s[j], ss[j], kst + 8 * j * RS + 16 * c, ah, al);
+    }
+#pragma unroll
+    for (int j = 0; j < NSN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] += ss[j][e];
+
+    // ---- log2(e), mask on edge tiles, online softmax ----
+#pragma unroll
+    for (int j = 0; j < NSN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= LOG2E;
+    const bool edge = k0 + BKT > Sk || (causal && k0 + BKT - 1 > q0) ||
+                      (window > 0 && k0 <= q0 + BQ - 1 - window);
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < NSN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qpos = row0 + 8 * (e / 2);
+          const int kpos = k0 + 8 * j + 2 * t4 + (e % 2);
+          bool ok = kpos < Sk;
+          if (causal) ok = ok && kpos <= qpos;
+          if (window > 0) ok = ok && kpos > qpos - window;
+          if (!ok) s[j][e] = NEG_INF;
+        }
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {               // rows g and g + 8
+      float mx = m[r];
+#pragma unroll
+      for (int j = 0; j < NSN; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
+      corr[r] = ex2(m[r] - mx);
       float psum = 0.f;
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        psum += p;
-        ps[r * PS + cg + 8 * j] = p;
+      for (int j = 0; j < NSN; ++j) {
+        const float p0 = ex2(s[j][2 * r] - mx);
+        const float p1 = ex2(s[j][2 * r + 1] - mx);
+        s[j][2 * r] = p0;
+        s[j][2 * r + 1] = p1;
+        psum += p0 + p1;
       }
-      l[i] = l[i] * corr + psum;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= corr;
-      m[i] = m_new;
+      l[r] = l[r] * corr[r] + psum;
+      m[r] = mx;
     }
-    __syncthreads();
 
-    for (int kk = 0; kk < BK32; ++kk) {
-      float pv[RPT];
+    // ---- O = O * corr + P.V, P split from registers ----
+    // S's accumulator holds keys 2t and 2t + 1 of each 8-key slice; they
+    // serve as k indices t and t + 4 of P's A fragment, and V's B
+    // fragment reads rows 2t and 2t + 1 to match.  With TLOC this key
+    // tile's products are summed apart in ot and added to acc in fp32.
+    float ot[TLOC ? NON : 1][4];
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) pv[i] = ps[(rg * RPT + i) * PS + kk];
+    for (int jd = 0; jd < NON; ++jd)
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        if (8 * j < hd) {              // warp-uniform: hd is a multiple of 8
-          const float vv = vs[kk * hd + cg + 8 * j];
-#pragma unroll
-          for (int i = 0; i < RPT; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
-        }
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (TLOC)
+          ot[jd][e] = 0.f;
+        else
+          acc[jd][e] *= corr[e / 2];
       }
+#pragma unroll
+    for (int kk = 0; kk < NSN; ++kk) {
+      uint32_t ph[4], pl[4];
+      split_tf32(s[kk][0], ph[0], pl[0]);       // row g,     key 2t
+      split_tf32(s[kk][2], ph[1], pl[1]);       // row g + 8, key 2t
+      split_tf32(s[kk][1], ph[2], pl[2]);       // row g,     key 2t + 1
+      split_tf32(s[kk][3], ph[3], pl[3]);       // row g + 8, key 2t + 1
+      const float* vr = vst + 8 * kk * RV;
+#pragma unroll
+      for (int jd = 0; jd < NON; ++jd) {
+        if (PAD && 8 * jd >= hd) break;         // block-uniform
+        uint32_t vh0, vl0, vh1, vl1;
+        split_tf32(vr[8 * jd], vh0, vl0);
+        split_tf32(vr[RV + 8 * jd], vh1, vl1);
+        if constexpr (TLOC)
+          mma_3xtf32(ot[jd], ph, pl, vh0, vh1, vl0, vl1);
+        else
+          mma_3xtf32(acc[jd], ph, pl, vh0, vh1, vl0, vl1);
+      }
+    }
+    if constexpr (TLOC) {
+#pragma unroll
+      for (int jd = 0; jd < NON; ++jd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[jd][e] = fmaf(acc[jd][e], corr[e / 2], ot[jd][e]);
     }
   }
 
-  // rows that saw no key (m still NEG_INF; uniform over the row's lanes)
-  bool none[RPT], mine = false;
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    none[i] = m[i] == NEG_INF && q0 + rg * RPT + i < Sq;
-    mine = mine || none[i];
-  }
-  float* colsum = smem;
-  if (__syncthreads_or(mine))
-    no_key_mean<float, NT>(v, colsum, b, h, Sk, H, hd, sk_pad);
+  // rows that saw no key (m still NEG_INF; uniform over the quad)
+  const bool none0 = m[0] == NEG_INF && row0 < Sq;
+  const bool none1 = m[1] == NEG_INF && row0 + 8 < Sq;
+  float* colsum = reinterpret_cast<float*>(smem_raw);
+  const bool any_none = __syncthreads_or(none0 || none1);
+  if (any_none) no_key_mean<float, NT>(v, colsum, b, h, Sk, H, hd, sk_pad);
 
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    float li = l[i];
+  for (int r = 0; r < 2; ++r) {
+    float li = l[r];
     li += __shfl_xor_sync(0xffffffffu, li, 1);
     li += __shfl_xor_sync(0xffffffffu, li, 2);
-    li += __shfl_xor_sync(0xffffffffu, li, 4);
-    const int qpos = q0 + rg * RPT + i;
+    const int qpos = row0 + 8 * r;
+    const bool none = r ? none1 : none0;
     if (qpos < Sq) {
       const float inv = 1.f / fmaxf(li, 1e-30f);
-      const size_t base = (((size_t)b * Sq + qpos) * H + h) * hd;
+      float* dst = o + (((size_t)b * Sq + qpos) * H + h) * hd;
 #pragma unroll
-      for (int j = 0; j < NJ; ++j)
-        if (8 * j < hd)
-          o[base + cg + 8 * j] =
-              none[i] ? colsum[cg + 8 * j] : acc[i][j] * inv;
+      for (int j = 0; j < NON; ++j) {
+        const int col = 8 * j + 2 * t4;
+        if (!PAD || col < hd)
+          *reinterpret_cast<float2*>(dst + col) =
+              none ? make_float2(colsum[col], colsum[col + 1])
+                   : make_float2(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
+      }
     }
   }
 }
 
-template <int HDMAX>
-cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o,
+template <int HDP, int BKT, bool QREG, bool PAD>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* o,
                         int B, int H, int Sq, int Sk, int hd, float scale,
                         int causal, int window, int sk_pad,
                         cudaStream_t stream) {
   static std::atomic<unsigned long long> attr_done{0};
-  const int smem = (int)sizeof(float) * ((BQ + BK32) * (hd + 1) +
-                                         BK32 * hd + BQ * PS);
-  constexpr int smem_max = (int)sizeof(float) * ((BQ + BK32) * (HDMAX + 1) +
-                                                 BK32 * HDMAX + BQ * PS);
-  auto kern = flash_fwd_fp32<HDMAX>;
-  cudaError_t err = set_smem_once(kern, smem_max, attr_done);
+  auto kern = flash_fwd_tf32<HDP, BKT, QREG, PAD>;
+  cudaError_t err = set_smem_once(kern, tf_smem_bytes(HDP, BKT), attr_done);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  kern<<<grid, NT, smem, stream>>>(
+  dim3 grid((Sq + TF_BQ - 1) / TF_BQ, H, B);
+  kern<<<grid, TF_NT, tf_smem_bytes((hd + 15) & ~15, BKT), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), H, Sq, Sk, hd,
       scale, causal, window, sk_pad);
   return cudaGetLastError();
+}
+
+// hd 64, 96, 128 and 256 run with every bound constant; any other
+// multiple of 8 runs padded in the next instantiation up.
+cudaError_t dispatch_tf32(const void* q, const void* k, const void* v,
+                          void* o, int B, int H, int Sq, int Sk, int hd,
+                          float scale, int causal, int window, int sk_pad,
+                          cudaStream_t s) {
+  switch (hd) {
+    case 64:
+      return launch_tf32<64, TF_BK, true, false>(q, k, v, o, B, H, Sq, Sk, hd,
+                                                 scale, causal, window, sk_pad, s);
+    case 96:
+      return launch_tf32<96, TF_BK_WIDE, false, false>(
+          q, k, v, o, B, H, Sq, Sk, hd, scale, causal, window, sk_pad, s);
+    case 128:
+      return launch_tf32<128, TF_BK_WIDE, false, false>(
+          q, k, v, o, B, H, Sq, Sk, hd, scale, causal, window, sk_pad, s);
+    case 256:
+      return launch_tf32<256, TF_BK_WIDE, false, false>(
+          q, k, v, o, B, H, Sq, Sk, hd, scale, causal, window, sk_pad, s);
+  }
+  if (hd < 64)
+    return launch_tf32<64, TF_BK, true, true>(q, k, v, o, B, H, Sq, Sk, hd,
+                                              scale, causal, window, sk_pad, s);
+  if (hd < 128)
+    return launch_tf32<128, TF_BK_WIDE, false, true>(
+        q, k, v, o, B, H, Sq, Sk, hd, scale, causal, window, sk_pad, s);
+  return launch_tf32<256, TF_BK_WIDE, false, true>(
+      q, k, v, o, B, H, Sq, Sk, hd, scale, causal, window, sk_pad, s);
 }
 
 }  // namespace
@@ -713,14 +976,8 @@ int flash_attention(const void* q, const void* k, const void* v, void* o,
   if (is_bf16)
     return (int)dispatch_mma(q, k, v, o, B, H, Sq, Sk, hd, scale, causal,
                              window, sk_pad, s);
-  if (hd <= 64)
-    return (int)launch_fp32<64>(q, k, v, o, B, H, Sq, Sk, hd, scale, causal,
-                                window, sk_pad, s);
-  if (hd <= 128)
-    return (int)launch_fp32<128>(q, k, v, o, B, H, Sq, Sk, hd, scale, causal,
-                                 window, sk_pad, s);
-  return (int)launch_fp32<256>(q, k, v, o, B, H, Sq, Sk, hd, scale, causal,
-                               window, sk_pad, s);
+  return (int)dispatch_tf32(q, k, v, o, B, H, Sq, Sk, hd, scale, causal,
+                            window, sk_pad, s);
 }
 
 }  // extern "C"

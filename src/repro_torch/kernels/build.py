@@ -45,7 +45,8 @@ class CudaLibrary:
     ``log`` keeps nvcc's ``-Xptxas -v`` report of the library's build
     (kept beside it, so a library found built has its report too) and
     ``build_s`` the build's seconds (0.0 when an up-to-date library was
-    found)."""
+    found).  ``source`` may also be a path outside ``csrc/`` (a timing
+    script builds another tree's copy of a source)."""
 
     def __init__(self, source: str, signatures: Signatures):
         self.source = CSRC / source

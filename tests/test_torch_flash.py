@@ -177,3 +177,122 @@ def test_plain_version_takes_mixed_types_as_pallas_does():
     assert got.dtype == torch.bfloat16 and want.dtype == jq.dtype
     np.testing.assert_allclose(got.float().numpy(), want.astype(np.float32),
                                rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+
+
+def _tf32(x: torch.Tensor, mode: str = "rna") -> torch.Tensor:
+    """float32 x with its 13 low mantissa bits dropped: rounded to
+    nearest with ties away from zero, as ``cvt.rna.tf32.f32`` rounds
+    (``"rna"``), or cut off, as the tensor core reads an operand that it
+    is given unrounded (``"cut"``)."""
+    b = x.float().contiguous().view(torch.int32)
+    if mode == "rna":
+        b = b + 0x1000
+    return (b & -0x2000).view(torch.float32)
+
+
+def _tf32_product(eq, a, b, split, lo_mode):
+    """einsum(eq, a, b) of the TF32 parts, each product exact (float64,
+    as the tensor core multiplies): a_lo.b_hi + a_hi.b_lo + a_hi.b_hi
+    with hi = tf32(x) and lo = tf32(x - hi) where ``split``, else one
+    TF32 product a_hi.b_hi."""
+    ah, bh = _tf32(a), _tf32(b)
+    out = torch.einsum(eq, ah.double(), bh.double())
+    if split:
+        al, bl = _tf32(a - ah, lo_mode), _tf32(b - bh, lo_mode)
+        out = (torch.einsum(eq, al.double(), bh.double())
+               + torch.einsum(eq, ah.double(), bl.double()) + out)
+    return out
+
+
+def _tf32_attention(q, k, v, causal, split, lo_mode="rna"):
+    """Attention with both products taken from TF32 parts, as the float32
+    kernel takes them (``split``) or as a kernel with one TF32 product
+    would: q scaled in fp32 first, the softmax in fp32, p split again for
+    P.V and l summed from the fp32 p."""
+    sq, sk, hd = q.shape[1], k.shape[1], q.shape[3]
+    s = _tf32_product("bqhd,bkhd->bhqk", q * (1.0 / hd ** 0.5), k, split,
+                      lo_mode).float()
+    mask = TREF.attention_mask(torch.arange(sq), torch.arange(sk),
+                               causal=causal, window=0)
+    p = torch.exp(s.masked_fill(~mask, -1e30)
+                  - s.masked_fill(~mask, -1e30).amax(-1, keepdim=True))
+    out = _tf32_product("bhqk,bkhd->bqhd", p, v, split, lo_mode)
+    return (out / p.sum(-1).transpose(1, 2)[..., None].double()).float()
+
+
+def _exact_attention(q, k, v, causal):
+    """The attention in float64 throughout."""
+    sq, sk, hd = q.shape[1], k.shape[1], q.shape[3]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) / hd ** 0.5
+    mask = TREF.attention_mask(torch.arange(sq), torch.arange(sk),
+                               causal=causal, window=0)
+    p = torch.softmax(s.masked_fill(~mask, -1e30), -1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.double())
+
+
+@pytest.mark.parametrize("case", ["causal", "non-causal", "causal, q x 4",
+                                  "causal, v = +-1 by key"])
+def test_split_tf32_meets_the_fp32_bound_where_one_tf32_product_fails(case):
+    """The float32 kernel's scheme, emulated at B 1, S 512, H 4, hd 64,
+    against the fp32 bound of chip_smoke.py's FLASH_TOL (1e-4 absolute):
+    every product from split TF32 parts (lo rounded as cvt.rna would
+    round it, or cut off as the tensor core reads it) is within 0.05 of
+    the bound of the float64 attention, and within 0.1 of it of the plain
+    fp32 version ``ref.flash_attention_ref``, which is itself up to 0.051
+    of the bound from float64 where q is scaled by 4 (its own fp32
+    rounding of s); one TF32 product per product is over the bound."""
+    b, s, h, hd = 1, 512, 4, 64
+    q, k, v = (torch.tensor(a) for a in _qkv(b, s, h, hd, 24))
+    if case == "causal, q x 4":
+        q = q * 4
+    if case == "causal, v = +-1 by key":
+        sign = 1.0 - 2.0 * (torch.arange(s) % 2).float()
+        v = sign.view(1, s, 1, 1).expand(b, s, h, hd).contiguous()
+    causal = case != "non-causal"
+    plain = TREF.flash_attention_ref(q, k, v, causal=causal).double()
+    exact = _exact_attention(q, k, v, causal)
+    bound = 1e-4
+
+    def share(got, want):
+        return float((got.double() - want).abs().max()) / bound
+
+    for lo_mode in ("rna", "cut"):
+        split = _tf32_attention(q, k, v, causal, True, lo_mode)
+        assert share(split, exact) <= 0.05
+        assert share(split, plain) <= 0.1
+    assert share(_tf32_attention(q, k, v, causal, False), plain) > 1.0
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits_ties_away():
+    """The emulation's rounding, on values whose 13 low bits are known:
+    below half a unit rounds down, half a unit rounds away from zero, the
+    cut drops the bits; signs and infinities keep."""
+    one_ulp = 2.0 ** -10                      # a TF32 unit at 1.0
+    x = torch.tensor([1.0 + one_ulp * 0.49, 1.0 + one_ulp * 0.5,
+                      -(1.0 + one_ulp * 0.5), 1.0 + one_ulp * 0.99,
+                      float("inf")], dtype=torch.float32)
+    assert _tf32(x).tolist() == [1.0, 1.0 + one_ulp, -(1.0 + one_ulp),
+                                 1.0 + one_ulp, float("inf")]
+    assert _tf32(x, "cut").tolist() == [1.0, 1.0, -1.0, 1.0, float("inf")]
+
+
+def test_another_trees_source_gets_a_library_of_its_own(tmp_path):
+    """A copy of a source outside csrc/ (another tree's, as a timing
+    script builds it) is named by its content: the same bytes share the
+    default build, an edited copy never reuses it."""
+    from repro_torch.kernels import build as BUILD
+    sig = {"flash_attention": ([BUILD.P], BUILD.I)}
+    default = BUILD.CudaLibrary("flash_attention.cu", sig)
+    same = tmp_path / "same" / "flash_attention.cu"
+    edited = tmp_path / "edited" / "flash_attention.cu"
+    for path in (same, edited):
+        path.parent.mkdir()
+        path.write_bytes(default.source.read_bytes())
+    edited.write_text(edited.read_text() + "\n// another tree\n")
+    copy = BUILD.CudaLibrary(str(same), sig)
+    other = BUILD.CudaLibrary(str(edited), sig)
+    assert copy.source == same and other.source == edited
+    assert copy.path() == default.path()
+    assert other.path() != default.path()
+    assert other.path().parent == default.path().parent == BUILD.BUILD_DIR
+

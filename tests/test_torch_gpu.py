@@ -180,6 +180,22 @@ def _check_flash(cuda, q, k, v, causal, window):
     # windows whose edge falls inside a key tile
     (1, 400, 400, 2, 64, torch.bfloat16, True, 77),
     (1, 300, 300, 3, 128, torch.bfloat16, False, 100),
+    # the split-TF32 fp32 kernel: each instantiation (hd 64 with 64-key
+    # tiles and Q in registers, hd 96, 128 and 256 with 32-key tiles and
+    # Q split from shared memory, hd 120 and 200 padded), Sq != Sk both
+    # ways, and windows whose edge falls inside a key tile
+    (1, 260, 260, 4, 96, torch.float32, True, 0),
+    (1, 70, 150, 2, 96, torch.float32, False, 0),
+    (1, 100, 333, 3, 64, torch.float32, True, 0),
+    (1, 150, 70, 2, 64, torch.float32, True, 0),
+    (1, 333, 100, 2, 128, torch.float32, False, 0),
+    (1, 100, 333, 2, 128, torch.float32, True, 0),
+    (1, 400, 400, 2, 64, torch.float32, True, 77),
+    (1, 300, 300, 3, 128, torch.float32, False, 100),
+    (1, 300, 300, 2, 256, torch.float32, False, 70),
+    (2, 520, 520, 16, 64, torch.float32, True, 0),
+    (1, 200, 200, 2, 120, torch.float32, False, 0),
+    (1, 200, 200, 2, 200, torch.float32, True, 45),
     # qwen2-0.5b's smoke head_dim 28: the wrapper zero-pads it to 32
     (1, 200, 200, 4, 28, torch.float32, True, 0),
     (1, 1100, 1100, 4, 28, torch.bfloat16, True, 0)])
@@ -219,11 +235,44 @@ def test_flash_kernel_keeps_p_precise_where_early_causal_rows_cancel(cuda):
     assert float(share) > 1.0
 
 
+def _tf32(x):
+    """float32 x rounded to TF32 (10 stored mantissa bits, to nearest with
+    ties away from zero, as cvt.rna.tf32.f32 rounds)."""
+    b = x.float().contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def test_flash_fp32_kernel_keeps_products_precise_where_one_tf32_product_fails(
+        cuda):
+    """Causal rows with q scaled by 4 (sharp softmaxes, so an error in s
+    shows in p): the float32 kernel, whose products are split TF32 (three
+    TF32 products each), meets the fp32 bound (0.0, 1e-4); the same
+    attention with q * scale, k, p and v each rounded once to TF32 and
+    exact products (one TF32 product per product, as a kernel that does
+    not split would compute) exceeds it more than tenfold, which shows
+    that the case tells the two apart."""
+    b, s, h, hd = 1, 512, 4, 64
+    g = torch.Generator(device="cpu").manual_seed(24)
+    q = (4 * torch.randn(b, s, h, hd, generator=g)).to(cuda)
+    k, v = (torch.randn(b, s, h, hd, generator=g).to(cuda) for _ in range(2))
+    want = _check_flash(cuda, q, k, v, True, 0).double()
+    sc = torch.einsum("bqhd,bkhd->bhqk", _tf32(q * (1.0 / hd ** 0.5)).double(),
+                      _tf32(k).double()).float()
+    pos = torch.arange(s, device=cuda)
+    sc = sc.masked_fill(pos[None, :] > pos[:, None], -1e30)
+    p = torch.exp(sc - sc.amax(-1, keepdim=True))
+    single = torch.einsum("bhqk,bkhd->bqhd", _tf32(p).double(),
+                          _tf32(v).double())
+    single = single / p.sum(-1).transpose(1, 2)[..., None].double()
+    assert float((single - want).abs().max()) / 1e-4 > 10.0
+
+
 @pytest.mark.parametrize("b,sq,sk,h,hd,dtype,causal,window", [
     # rows 263-299 see no key; Sk 200 pads to 256 in the Pallas kernel
     (1, 300, 200, 2, 64, torch.float32, True, 64),
     (1, 300, 200, 2, 64, torch.bfloat16, True, 64),
     (1, 300, 200, 2, 64, torch.bfloat16, False, 64),
+    (1, 300, 200, 2, 96, torch.float32, True, 64),
     # a whole query tile of such rows (every key tile skipped), hd 96
     # and 256, and an Sk under the Pallas kernel's smallest block
     (2, 400, 130, 3, 96, torch.bfloat16, True, 8),

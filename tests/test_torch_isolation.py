@@ -1,5 +1,6 @@
 """The port stands alone: no module of src/repro_torch/ (and no line of
-chip_smoke.py or of the port's examples, examples/*_torch.py) imports
+chip_smoke.py, of the port's examples, examples/*_torch.py, or of the
+kernel timing script tools/flash_fp32_timing.py) imports
 jax or the JAX package, and importing the CLI leaves jax out of
 sys.modules."""
 import ast
@@ -12,7 +13,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"] + [
+    ROOT / "chip_smoke.py", ROOT / "tools" / "flash_fp32_timing.py"] + [
     ROOT / "examples" / f"{name}_torch.py" for name in (
         "quickstart", "scheme_comparison", "fl_pretrain_lm",
         "serve_decode")]
