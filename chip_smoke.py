@@ -45,15 +45,21 @@
    takes it), counts reset before and read after; it must pick the
    same winners.
 7. Cohort runtimes path: the paper path of 4. again with ``--runtime
-   vectorized`` and ``--runtime device`` (the batched engine: one vmapped
-   stage-1 gradient pass, batched local training with fused FedAvg), each
-   with the counts reset before and read after (26 ``lloyd_step``
-   launches), held to REFERENCE_WINNERS and to the sequential cuda run's
-   final params (max |d| < 1e-4, tests/test_sim.py's bound); the device
-   runtime must meet no new shape after its warm-up.  Prints stage-1,
-   feature, k-means, warm-up and per-round seconds for all three
-   runtimes, and times the feature pass over the whole client axis
-   against 4-wide chunks.
+   vectorized``, ``--runtime sharded`` (the cohort mesh of the local
+   cards: one here, a data axis of 1) and ``--runtime device`` (the
+   batched engine: one vmapped stage-1 gradient pass, batched local
+   training with fused FedAvg), each with the counts reset before and
+   read after (26 ``lloyd_step`` launches), held to REFERENCE_WINNERS
+   and to the sequential cuda run's final params (max |d| < 1e-4,
+   tests/test_sim.py's bound); the device runtime must meet no new shape
+   after its warm-up.  Then a forced 4-way split on the one card:
+   ``sharded`` and ``device`` on a cohort mesh that lists cuda:0 four
+   times (FORCED_SPLIT, made here, no flag) with ``--audit-sync``, each
+   held to REFERENCE_WINNERS and to the vectorized run's params, every
+   ``device`` tier a multiple of 4.  Prints the data axis, shard count,
+   host packing seconds and stage-1, feature, k-means, warm-up and
+   per-round seconds for every run, and times the feature pass over the
+   whole client axis against 4-wide chunks.
 8. Scheme comparison path: the paper's four ``--scheme`` values
    (``gradient_cluster_auction`` and its baselines
    ``gradient_cluster_random``, ``weights_cluster_random`` and
@@ -135,8 +141,11 @@
    ``lloyd_step`` launches), each held to the JAX package's stage-1
    labels and winners in every round and to its test loss, accuracy and
    energy std within TF_LOSS_TOL / TF_ACC_TOL (TRANSFORMER_REFERENCE,
-   written by tools/record_transformer_reference.py); stage-1 seconds,
-   seconds per round and the ``cohort/train`` share per run.
+   written by tools/record_transformer_reference.py); then qwen2-0.5b
+   on ``sharded`` for its 30 rounds, held the same way to the JAX
+   package's ``vectorized`` run and to the card's vectorized params;
+   stage-1 seconds, seconds per round and the ``cohort/train`` share per
+   run.
 14. Full-width train step (after the examples path): ``make_train_step``
    on qwen2-0.5b's full CONFIG (24 layers, bf16, remat, chunked
    attention) at B 2, S 4,096 for 3 SGD steps at lr 1e-3 on one seeded
@@ -157,11 +166,11 @@
    granite-moe-3b-a800m (32 layers, 40 experts top-8), one 8-layer period
    of jamba-v0.1-52b (Mamba, MoE and one attention layer) and
    xlstm-1.3b (48 sLSTM/mLSTM blocks).  For each: ``init_params``
-   seconds, parameters and GB; a prefill (4,096 tokens, 1,024 for xlstm)
+   seconds, parameters and GB; a prefill (4,096 tokens, 256 for xlstm)
    with counts reset before and read after (one flash_attention launch
    per attention layer: 32 and 1), tokens/s and peak memory; the kernel
-   prefill against the naive one; a teacher-forced decode of 256 steps
-   against a prefill of the same tokens; and a 4 x (16 + 32) serve
+   prefill against the naive one; a teacher-forced decode of 16 steps
+   against a prefill of the same tokens; and a 4 x (16 + 16) serve
    replayed.  The comparisons run at capacity factor 8.0 and print the
    share of positions within LOGITS_REL_TOL and the (token, layer) pairs
    whose experts differ.  In bf16 at full depth they are measured; the
@@ -169,10 +178,10 @@
    the JAX package meets it (tools/moe_bf16_witness.py).  The float32
    model of the same draws at the same width is held to
    tests/test_models.py's rule for its arch (RULE_BY_SHARE): the kernel
-   prefill against the naive one, and 1,025 decode steps against a
-   kernel prefill of the same tokens; for xlstm every block's 128
-   decode steps against its full-sequence form (ZOO_SERVING says why
-   block by block).
+   prefill against the naive one, and 32 decode steps against a
+   prefill of the same tokens; for xlstm every block's 128 decode steps
+   against its full-sequence form (ZOO_SERVING says why block by
+   block).
 17. Whisper serving path (after the zoo serving path): whisper-tiny's
    CONFIG (4 encoder and 4 decoder layers, bf16, ``attn_impl="pallas"``)
    over WHISPER_CLIPS clips of the serve CLI's float32 frames: init;
@@ -590,13 +599,19 @@ LOGITS_REL_TOL = 2e-2
 # the bound tests/test_sim.py holds every runtime's params to against the
 # sequential runtime's
 PARAMS_TOL = 1e-4
-BATCHED_RUNTIMES = ("vectorized", "device")
+BATCHED_RUNTIMES = ("vectorized", "sharded", "device")
+# the forced split: sharded and device on a cohort mesh of the first
+# card listed this many times (one shard an entry), held to vectorized
+FORCED_SPLIT = 4
 # the transformer path: --mode transformer at the CLI defaults (each
 # arch's smoke config, 20 FL clients, 5 clusters) held to the JAX
 # package's runs (tools/record_transformer_reference.py): qwen2-0.5b for
 # 30 rounds on each runtime, the other dense archs for 3 on sequential
 TRANSFORMER_REFERENCE = ROOT / "tools" / "transformer_reference.json"
 TF_RUNTIMES = ("sequential", "vectorized", "device")
+# --runtime sharded on the transformer path's first arch, held to that
+# arch's vectorized run (the JAX package's and the card's)
+TF_SHARDED_AS = "vectorized"
 # JAX's three runtimes pick the same clusters and winners in all 30
 # rounds, with test losses within 9.6e-7 of each other and accuracy and
 # energy std identical: the card is held to 1e-5 on loss and energy std
@@ -631,12 +646,18 @@ BLOCK_STEPS = 128
 # at 48 layers in float32 the JAX package's own gap over 12 tokens is
 # 0.012-0.032 of the largest logit, over LOGITS_REL_TOL in 2 of 3 draws),
 # so its rule is held block by block, each block given the prefill's
-# input, and the end-to-end gap is printed.
+# input, and the end-to-end gap is printed.  The steps were cut to keep
+# the run inside its time limit (PERF.md): the bf16 decodes, measured
+# only, from 256 to 16, xlstm's prefill from 1,024 tokens to 256, the
+# float32 rule's decodes from 1,025 to 32 (the float32 kernel keeps its
+# gate in the kernel-vs-naive prefill at 4,096), the served tokens
+# from 32 to ZOO_SERVE_GEN.
 ZOO_SERVING = (
-    ("granite-moe-3b-a800m", None, 4096, 256, 1025, False),
-    ("jamba-v0.1-52b", 8, 4096, 256, 1025, False),
-    ("xlstm-1.3b", None, 1024, 256, BLOCK_STEPS, True),
+    ("granite-moe-3b-a800m", None, 4096, 16, 32, False),
+    ("jamba-v0.1-52b", 8, 4096, 16, 32, False),
+    ("xlstm-1.3b", None, 256, 16, BLOCK_STEPS, True),
 )
+ZOO_SERVE_GEN = 16
 # tests/test_models.py's rules, by arch: for the MoE archs it names
 # (RULE_BY_SHARE, :117-139), with capacity factor 8.0 (no token dropped
 # at either shape), at least 70 % of positions within LOGITS_REL_TOL (an
@@ -975,14 +996,14 @@ def check_flash(OPS, dev, label, b, sq, sk, h, hd, q_dtype, kv_dtype,
             "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
 
 
-def serve_replayed(cfg, params, cuda, tag: str) -> None:
-    """``serve`` 4 x (16 + 32) tokens, then replay the sequences through
-    ``decode_step``: each served id must be the argmax of the logits
-    that made it.  Prints the served seconds, tokens/s and ids."""
+def serve_replayed(cfg, params, cuda, tag: str, gen: int = 32) -> None:
+    """``serve`` 4 x (16 + ``gen``) tokens, then replay the sequences
+    through ``decode_step``: each served id must be the argmax of the
+    logits that made it.  Prints the served seconds, tokens/s and ids."""
     from repro_torch.launch.serve import serve
     from repro_torch.models import model as MD
 
-    batch, prompt_len, gen = 4, 16, 32
+    batch, prompt_len = 4, 16
     out = serve(cfg, params, batch, prompt_len, gen, cuda)
     ids = out["tokens"]
     require(tuple(ids.shape) == (batch, gen), f"{tag}: served "
@@ -1305,8 +1326,8 @@ def serve_zoo_model(OPS, cuda, arch, layers, prefill_len, steps, gate_steps,
           f"{torch.cuda.max_memory_allocated() / 1e9!r}", flush=True)
     agreement(OPS, cuda, arch, cfg, params, prefill_len, steps, gate=False)
 
-    # ---- serve 4 x (16 + 32); replay to check the ids ------------------
-    serve_replayed(cfg, params, cuda, tag)
+    # ---- serve 4 x (16 + 16); replay to check the ids ------------------
+    serve_replayed(cfg, params, cuda, tag, ZOO_SERVE_GEN)
     if any(b.mixer != "attn" for b in cfg.cycle):
         per_block_agreement(cuda, cfg, params, BLOCK_STEPS)
     del params
@@ -1780,55 +1801,107 @@ def max_param_diff(a, b) -> float:
     return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
 
 
+def check_cohort_run(OPS, runtime, result, srv, want_params, against):
+    """One batched-runtime run of the paper path at the defaults: 26
+    ``lloyd_step`` launches, REFERENCE_WINNERS, params within PARAMS_TOL
+    of ``want_params`` (the ``against`` run's); ``device`` meets no new
+    shape after its warm-up.  Returns the line's tail to print."""
+    launches = OPS.lloyd_step.launches
+    require(srv.runtime.name == runtime,
+            f"--runtime {runtime} built a {srv.runtime.name} runtime")
+    require(launches == 26, f"{runtime}: stage 1 made {launches} "
+            "lloyd_step launches, expected 26")
+    require(OPS.kmeans_assign.launches == OPS.flash_attention.launches
+            == 0, f"{runtime}: launched a kernel it does not use")
+    require(result["selected"] == REFERENCE_WINNERS,
+            f"{runtime}: rounds selected {result['selected']}, the JAX "
+            f"package selects {REFERENCE_WINNERS}")
+    require(result["params_finite"], f"{runtime}: non-finite params")
+    diff = max_param_diff(srv.params, want_params)
+    require(diff < PARAMS_TOL, f"{runtime}: final params differ from "
+            f"the {against} run's by {diff} >= {PARAMS_TOL}")
+    eng = srv.runtime.engine
+    stats = eng.stats
+    extra = ""
+    if runtime == "device":
+        # warm-up notes one miss per (class, tier); the rounds none
+        shapes = sum(len(c.tiers) for c in srv.runtime.store.classes)
+        require(stats["shape_misses"] == shapes,
+                f"device: {stats['shape_misses']} shape misses, the "
+                f"warm-up met {shapes} shapes: the rounds met new ones")
+        extra = (f" classes={len(srv.runtime.store.classes)} "
+                 f"warmup_shapes={shapes}")
+    mesh = eng.mesh
+    return (f"lloyd_step launches={launches} selected=REFERENCE_WINNERS "
+            f"max_abs_dparams_vs_{against}={diff!r} data_axis="
+            f"{eng.data_axis_size} shards={eng.data_axis_size} mesh="
+            f"{[str(d) for d in mesh.devices] if mesh else None} "
+            f"host_pack_s={srv.runtime.host_pack_s!r} shape_hits="
+            f"{stats['shape_hits']} shape_misses={stats['shape_misses']}"
+            f"{extra}")
+
+
 def cohort_runtimes_path(OPS, TRAIN, obs, servers, seq_params):
     """The paper path on the batched runtimes, each held to the winners
-    and to the sequential cuda run's final params.  Returns the
-    vectorized run's server."""
+    and to the sequential cuda run's final params; then ``sharded`` and
+    ``device`` on a forced FORCED_SPLIT-way mesh of the first card, held
+    to the vectorized run's.  Returns the vectorized run's server and
+    the runs' ``lloyd_step`` launches."""
+    from repro_torch.launch import mesh as MESH
     # torch.func.grad imports torch._dynamo at its first call, once a
     # process: timed here on its own, so the runs' spans hold their work
     t = time.perf_counter()
     importlib.import_module("torch._dynamo")
     print(f"first-use import of torch._dynamo (torch.func.grad): "
           f"{time.perf_counter() - t!r} s", flush=True)
-    got = {}
+    got, launches = {}, 0
     for runtime in BATCHED_RUNTIMES:
         reset_counts(OPS)
         obs.SPANS.clear()
         result = TRAIN.main(MAIN_ARGS + ["--runtime", runtime])
         torch.cuda.synchronize()
-        launches = OPS.lloyd_step.launches
         srv = servers[-1]
-        require(srv.runtime.name == runtime,
-                f"--runtime {runtime} built a {srv.runtime.name} runtime")
-        require(launches == 26, f"{runtime}: stage 1 made {launches} "
-                "lloyd_step launches, expected 26")
-        require(OPS.kmeans_assign.launches == OPS.flash_attention.launches
-                == 0, f"{runtime}: launched a kernel it does not use")
-        require(result["selected"] == REFERENCE_WINNERS,
-                f"{runtime}: rounds selected {result['selected']}, the JAX "
-                f"package selects {REFERENCE_WINNERS}")
-        require(result["params_finite"], f"{runtime}: non-finite params")
-        diff = max_param_diff(srv.params, seq_params)
-        require(diff < PARAMS_TOL, f"{runtime}: final params differ from "
-                f"the sequential run's by {diff} >= {PARAMS_TOL}")
-        stats = srv.runtime.engine.stats
-        extra = ""
-        if runtime == "device":
-            # warm-up notes one miss per (class, tier); the rounds none
-            shapes = sum(len(c.tiers) for c in srv.runtime.store.classes)
-            require(stats["shape_misses"] == shapes,
-                    f"device: {stats['shape_misses']} shape misses, the "
-                    f"warm-up met {shapes} shapes: the rounds met new ones")
-            extra = (f" classes={len(srv.runtime.store.classes)} "
-                     f"warmup_shapes={shapes}")
-        print(f"cohort runtime {runtime}: lloyd_step launches={launches} "
-              f"selected=REFERENCE_WINNERS max_abs_dparams_vs_sequential="
-              f"{diff!r} shape_hits={stats['shape_hits']} "
-              f"shape_misses={stats['shape_misses']}{extra}", flush=True)
+        print(f"cohort runtime {runtime}: " + check_cohort_run(
+            OPS, runtime, result, srv, seq_params, "sequential"),
+            flush=True)
         got[runtime] = (result, dict(obs.SPANS), srv)
+        launches += OPS.lloyd_step.launches
+    vec_params = got["vectorized"][2].params
+    # the forced split: the mesh is made here and reaches the runtimes
+    # through make_cohort_mesh, as --cohort-devices would on more cards;
+    # round 2 runs under the sync audit
+    card = torch.device("cuda", torch.cuda.current_device())
+    make = MESH.make_cohort_mesh
+    MESH.make_cohort_mesh = (lambda num_devices=0, device="cuda":
+                             MESH.CohortMesh((card,) * FORCED_SPLIT))
+    try:
+        for runtime in ("sharded", "device"):
+            reset_counts(OPS)
+            obs.SPANS.clear()
+            result = TRAIN.main(MAIN_ARGS + ["--runtime", runtime,
+                                             "--audit-sync"])
+            torch.cuda.synchronize()
+            srv = servers[-1]
+            eng = srv.runtime.engine
+            require(eng.data_axis_size == FORCED_SPLIT,
+                    f"forced split: {runtime} has a data axis of "
+                    f"{eng.data_axis_size}, expected {FORCED_SPLIT}")
+            if runtime == "device":
+                tiers = [c.tiers for c in srv.runtime.store.classes]
+                require(all(t % FORCED_SPLIT == 0 for ts in tiers
+                            for t in ts), f"forced split: device tiers "
+                        f"{tiers} not all multiples of {FORCED_SPLIT}")
+            name = f"{runtime} x{FORCED_SPLIT}"
+            print(f"cohort runtime {name} (forced split, --audit-sync): "
+                  + check_cohort_run(OPS, runtime, result, srv, vec_params,
+                                     "vectorized"), flush=True)
+            got[name] = (result, dict(obs.SPANS), srv)
+            launches += OPS.lloyd_step.launches
+    finally:
+        MESH.make_cohort_mesh = make
     for runtime, (result, spans, _) in got.items():
         runtime_seconds(runtime, result, spans)
-    return got["vectorized"][2]
+    return got["vectorized"][2], launches
 
 
 def feature_pass_widths(runtime, params) -> None:
@@ -2736,14 +2809,20 @@ def transformer_path(OPS, TRAIN, obs, servers,
     on each runtime and each other dense arch for 3 on ``sequential``;
     ZOO_REFERENCE: the MoE, Mamba and xLSTM archs), counts reset before
     and read after each run (26 ``lloyd_step`` launches), held to the JAX
-    package's labels, winners and round metrics.  Returns the
-    launches."""
+    package's labels, winners and round metrics.  On
+    TRANSFORMER_REFERENCE, its first arch also runs ``sharded``, held to
+    the JAX package's TF_SHARDED_AS run and to the card's params of that
+    runtime.  Returns the launches."""
     ref = json.loads(reference.read_text())
     runs = [(arch, rt) for arch, by_rt in ref["runs"].items()
             for rt in TF_RUNTIMES if rt in by_rt]
+    if reference == TRANSFORMER_REFERENCE:
+        runs.append((runs[0][0], "sharded"))
+    params = {}
     total = 0
     for arch, runtime in runs:
-        want, rounds = ref["runs"][arch][runtime], ref["rounds"][arch]
+        as_rt = TF_SHARDED_AS if runtime == "sharded" else runtime
+        want, rounds = ref["runs"][arch][as_rt], ref["rounds"][arch]
         reset_counts(OPS)
         obs.SPANS.clear()
         result = TRAIN.main(["--mode", "transformer", "--quiet", "--arch",
@@ -2773,6 +2852,14 @@ def transformer_path(OPS, TRAIN, obs, servers,
                                                        want[key]))
             require(errs[key] <= tol, f"{tag}: {key} differs from the "
                     f"JAX package's by {errs[key]} > {tol}")
+        params[arch, runtime] = srv.params
+        if runtime == "sharded":
+            diff = max_param_diff(srv.params, params[arch, as_rt])
+            require(diff < PARAMS_TOL, f"{tag}: params differ from the "
+                    f"card's {as_rt} run's by {diff} >= {PARAMS_TOL}")
+            tag += (f" [held to {as_rt}; data_axis="
+                    f"{srv.runtime.engine.data_axis_size} max_abs_dparams_"
+                    f"vs_{as_rt}={diff!r}]")
         stage1 = obs.SPANS["run/cluster"]
         warmup = obs.SPANS.get("run/warmup", 0.0)
         loop_s = result["wall_s"] - stage1 - warmup
@@ -3129,7 +3216,8 @@ def main() -> int:
     # ---- cohort runtimes path ------------------------------------------
     phase("cohort runtimes path", t0)
     runtime_seconds("sequential", result, seq_spans)
-    vec = cohort_runtimes_path(OPS, TRAIN, obs, servers, seq_params)
+    vec, cohort_launches = cohort_runtimes_path(OPS, TRAIN, obs, servers,
+                                                seq_params)
     feature_pass_widths(vec.runtime, vec.params)
 
     # ---- scheme comparison path -----------------------------------------
@@ -3197,9 +3285,11 @@ def main() -> int:
                 "bound_by": m["bound_by"], "library_ms": library_ms}
 
     lloyd_examples = sum(example_launches.values())
-    lloyd_launches = (dyn_launches + robust_launches + tf_launches
-                      + zoo_tf_launches + lloyd_examples)
-    print(f"lloyd_step launches by path: dynamics {dyn_launches} (its "
+    lloyd_launches = (cohort_launches + dyn_launches + robust_launches
+                      + tf_launches + zoo_tf_launches + lloyd_examples)
+    print(f"lloyd_step launches by path: cohort runtimes "
+          f"{cohort_launches} (26 a run: vectorized, sharded, device and "
+          f"the forced split's two), dynamics {dyn_launches} (its "
           f"churn-0.1 run), robust {robust_launches} (26 a run), "
           f"transformer {tf_launches} (26 a run), zoo transformer "
           f"{zoo_tf_launches} (26 a run), examples {lloyd_examples} ("

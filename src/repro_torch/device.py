@@ -17,6 +17,15 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def canonical_device(device="cuda") -> torch.device:
+    """``device`` with its index: a bare ``cuda`` is the current card (so
+    two names of one device compare equal)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def synchronize(device) -> None:
     """Wait for the work queued on ``device`` (a no-op on the CPU).  The
     stage-1 spans end with it, so their host time holds the device work

@@ -6,8 +6,9 @@ transformer`` and ``--mode selection``.
     per-cluster selection under any ``--scheme`` (the paper's auction and
     its three baselines) and any ``--scheme-select`` of the registry,
     FedAvg/FedProx aggregation and energy accounting, on the
-    ``sequential``, ``vectorized`` or ``device`` runtime (``sharded``
-    raises ``NotImplementedError``).
+    ``sequential``, ``vectorized``, ``sharded`` or ``device`` runtime
+    (``--cohort-devices`` caps the cohort mesh of ``sharded`` and
+    ``device``: 0, the default, takes every local GPU).
   * ``--mode transformer``: the same FL plane over a registry LM
     (``--arch``, at its smoke config, as the JAX CLI trains it):
     next-token training on topic-conditional token sequences
@@ -44,6 +45,8 @@ repro.launch.train``), plus ``--device``:
   python -m repro_torch.launch.train --mode paper              # on cuda
   python -m repro_torch.launch.train --mode paper --device cpu
   python -m repro_torch.launch.train --mode paper --runtime device
+  python -m repro_torch.launch.train --mode paper --runtime sharded \
+      --cohort-devices 4
   python -m repro_torch.launch.train --mode paper --scheme random
   python -m repro_torch.launch.train --mode transformer --arch starcoder2-3b
   python -m repro_torch.launch.train --mode selection --clients 1000000
@@ -56,9 +59,8 @@ repro.launch.train``), plus ``--device``:
 
 The run is on the GPU unless ``--device cpu`` is given; ``cuda`` with no
 GPU raises.  TF32 is switched off for matmuls and cuDNN, so float32 stays
-float32.  A flag whose feature is not ported yet is still parsed, and a
-non-default value raises ``NotImplementedError`` (ROADMAP.md, queue 1:
-the sharded runtime and ``--cohort-devices``).
+float32.  The cohort mesh is made of the local GPUs, driven by this one
+process (launch/mesh.py); ``--device cpu`` gives a 1-device mesh.
 """
 from __future__ import annotations
 
@@ -81,10 +83,6 @@ from repro_torch.data.synthetic import make_image_dataset, make_token_dataset
 from repro_torch.device import resolve_device
 from repro_torch.sim import dynamics as DYN
 
-# flags of the JAX CLI whose features the port does not have yet
-UNPORTED_FLAGS = ("cohort_devices",)
-
-
 def set_float32_precision() -> None:
     """Full float32 everywhere: no TF32 in matmuls or cuDNN."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -100,6 +98,7 @@ def run_paper(args, device: torch.device, assign_fn=None) -> dict:
         scheme_select=args.scheme_select,
         fedcs_deadline=args.fedcs_deadline, aggregator=args.aggregator,
         init_energy_mode=args.energy_mode, runtime=args.runtime,
+        cohort_mesh_devices=args.cohort_devices,
         eval_every=args.eval_every, seed=args.seed,
         churn=args.churn, deadline=args.deadline,
         straggler_profile=args.straggler_profile,
@@ -380,12 +379,6 @@ def main(argv: Optional[List[str]] = None, *, assign_fn=None) -> dict:
     ``assign_fn`` does."""
     ap = build_parser()
     args = ap.parse_args(argv)
-    for dest in UNPORTED_FLAGS:
-        if getattr(args, dest) != ap.get_default(dest):
-            raise NotImplementedError(
-                f"--{dest.replace('_', '-')} is not ported yet "
-                "(ROADMAP.md, queue 1: the sharded runtime and "
-                "--cohort-devices); leave it at its default")
     set_float32_precision()
     device = resolve_device(args.device)
     attached = obs.OBS.sinks

@@ -14,17 +14,17 @@ minibatches.  Packing never pads *inside* a batch; it pads only along
     masked step into the identity), and
   * the **client axis**: each bucket is padded with weight-0 rows to a
     multiple of ``cfg.cohort_vmap_width``, but never beyond the next
-    power of two.
+    power of two, and then to a multiple of ``client_multiple`` (the
+    cohort mesh's data-axis size, so a sharded bucket splits evenly).
 
 Clients are split into **buckets** keyed by ``(batch size, power-of-two
 step band)``; the bucket partial aggregates (against the cohort's global
 weights) add up to the full FedAvg update.  :class:`HostPlanCache`
 memoizes each client's plan structure and local data, so per-round
-packing rebuilds only the permutations.  The JAX packer's
-``client_multiple`` (the mesh's data-axis size) and its telemetry
-counters are not ported: the port has no mesh yet (ROADMAP.md, queue 1,
-multi-GPU ``sharded``) and its ``obs`` has no counters (queue 1,
-observability).
+packing rebuilds only the permutations.  With sinks attached, each
+packing adds to the ``pack/buckets``, ``pack/client_rows`` and
+``pack/real_clients`` counters (the padding it carried), as the JAX
+packer does.
 """
 from __future__ import annotations
 
@@ -33,6 +33,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.configs.base import FLConfig
 
 
@@ -158,10 +159,13 @@ def _pack_plans(locals_xy: Sequence[Tuple[np.ndarray, np.ndarray]],
                 plans: Sequence[np.ndarray],
                 client_ids: Sequence[int],
                 weights: Sequence[float],
-                chunk_width: int = 4) -> List[CohortBucket]:
+                chunk_width: int = 4,
+                client_multiple: int = 1) -> List[CohortBucket]:
     """Group (plan, local shard) pairs into (batch size, pow2 step band)
     buckets and materialize the padded arrays.  ``locals_xy[m]`` holds
-    member m's (x_local, y_local) data and ``plans[m]`` indexes into it."""
+    member m's (x_local, y_local) data and ``plans[m]`` indexes into it.
+    ``client_multiple`` forces the padded client axis to a multiple of
+    the mesh's data-axis size."""
     by_key: Dict[tuple, List[int]] = {}
     for pos, plan in enumerate(plans):
         key = (plan.shape[1], _next_pow2(max(plan.shape[0], 1)))
@@ -175,6 +179,7 @@ def _pack_plans(locals_xy: Sequence[Tuple[np.ndarray, np.ndarray]],
         # 2-client bucket padded to 4 would double its compute)
         c_pad = min(_round_up(len(members), chunk_width),
                     _next_pow2(len(members)))
+        c_pad = _round_up(c_pad, client_multiple)
         xb = np.zeros((c_pad, s_max, bs) + x0.shape[1:], x0.dtype)
         yb = np.zeros((c_pad, s_max, bs), y0.dtype)
         mask = np.zeros((c_pad, s_max), np.float32)
@@ -192,12 +197,20 @@ def _pack_plans(locals_xy: Sequence[Tuple[np.ndarray, np.ndarray]],
         buckets.append(CohortBucket(client_idx=cid, xb=xb, yb=yb,
                                     step_mask=mask, weights=w,
                                     batch_size=bs))
+    if obs.OBS.enabled:
+        # padding counters (emitted at the next flush): bucket programs
+        # run, the padded client rows they carried, the real members
+        obs.OBS.counter("pack/buckets", len(buckets))
+        obs.OBS.counter("pack/client_rows",
+                        sum(b.weights.shape[0] for b in buckets))
+        obs.OBS.counter("pack/real_clients", len(plans))
     return buckets
 
 
 def pack_cohort(x: np.ndarray, y: np.ndarray, clients,
                 sel_idx: np.ndarray, history: np.ndarray,
-                cfg: FLConfig, cache: Optional[HostPlanCache] = None
+                cfg: FLConfig, client_multiple: int = 1,
+                cache: Optional[HostPlanCache] = None
                 ) -> List[CohortBucket]:
     """Pack the round's winners for the engine.
 
@@ -205,8 +218,10 @@ def pack_cohort(x: np.ndarray, y: np.ndarray, clients,
     the shuffles).  Aggregation weights are ``p_k = n_k / sum n_k`` over
     the whole cohort.  Zero-size winners are dropped up front; an
     all-zero cohort packs to [] (the runtimes then skip aggregation).
-    ``cache`` carries the memoized plan structure and local data across
-    rounds; without one a throwaway cache is built (same result).
+    ``client_multiple`` pads every bucket's client axis to a multiple
+    of it (the cohort mesh's data-axis size).  ``cache`` carries the
+    memoized plan structure and local data across rounds; without one a
+    throwaway cache is built (same result).
     """
     sel_idx = drop_zero_size_winners(sel_idx, clients)
     if sel_idx.size == 0:
@@ -220,7 +235,8 @@ def pack_cohort(x: np.ndarray, y: np.ndarray, clients,
     plans = [cache.plan(int(i), int(history[int(i)])) for i in sel_idx]
     return _pack_plans(locals_xy, plans, [int(i) for i in sel_idx],
                        [float(p) for p in pk],
-                       chunk_width=cfg.cohort_vmap_width)
+                       chunk_width=cfg.cohort_vmap_width,
+                       client_multiple=client_multiple)
 
 
 def pack_feature_pass(x: np.ndarray, y: np.ndarray, clients,

@@ -33,6 +33,20 @@ and the mask are elementwise, so they act on the stacked ``(C, ...)``
 params directly.  Batch norm (CNN-FMNIST) takes each client's own batch
 statistics under ``vmap``, as under JAX's.
 
+With a ``mesh`` (repro_torch.launch.mesh.CohortMesh: the ``sharded``
+runtime, and ``device`` on several devices), :meth:`train_cohort` and
+:meth:`train_class` split each bucket's or invocation's padded client
+axis into ``data`` contiguous shards of ``C / data`` rows, by the specs
+of repro_torch.sharding.rules.  One process drives every shard, as
+JAX's single controller does: each shard's steps are queued on its own
+device (launches are asynchronous, so shards on different cards
+overlap), and each shard forms its float32 weighted partial.  The
+partials go to the mesh's first device and are added there in shard
+order, and only their float32 sum is cast to the params' dtype (JAX's
+``psum(p).astype(dtype)``).  The global params are copied to each mesh
+device once a round (:meth:`replicate`).  The defended twins and the
+clustering features stay on one device, as in the JAX engine.
+
 Unlike the JAX engine, the port vmaps a bucket's whole client axis at
 once: the JAX engine's chunked ``lax.map`` over ``cohort_vmap_width``
 clients keeps the CPU's cache warm and changes no client's arithmetic.
@@ -44,7 +58,7 @@ runtime up to float reassociation.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -52,6 +66,7 @@ from repro_torch import obs
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.adapters import ModelAdapter
 from repro_torch.optim import OptState, apply_updates, fedprox_grad, sgd
+from repro_torch.sharding import rules
 from repro_torch.sim.cohort import CohortBucket
 
 Tree = Dict[str, torch.Tensor]
@@ -74,14 +89,31 @@ def _device_of(params: Tree) -> torch.device:
 
 
 class CohortEngine:
-    def __init__(self, adapter: ModelAdapter, cfg: FLConfig):
+    def __init__(self, adapter: ModelAdapter, cfg: FLConfig, mesh=None):
         self.adapter = adapter
         self.cfg = cfg
+        self.mesh = mesh
         self.stats = {"shape_hits": 0, "shape_misses": 0}
         self._seen_shapes = set()
         grad = torch.func.grad(adapter.loss)
         self._client_grads = torch.func.vmap(grad)        # per-client params
         self._shared_grads = torch.func.vmap(grad, in_dims=(None, 0))
+
+    @property
+    def data_axis_size(self) -> int:
+        """Client-axis shard count (1 when unsharded)."""
+        return 1 if self.mesh is None else self.mesh.shape["data"]
+
+    def replicate(self, tree: Tree) -> Tuple[Tree, ...]:
+        """``tree`` once per mesh shard, on the shard's device: one copy
+        per distinct device (a shard on the tree's own device, or on a
+        device already copied to, shares that copy)."""
+        copies: Dict[torch.device, Tree] = {}
+        for dev in self.mesh.devices:
+            if dev not in copies:
+                copies[dev] = {k: v.to(dev, non_blocking=True)
+                               for k, v in tree.items()}
+        return tuple(copies[dev] for dev in self.mesh.devices)
 
     def _note_shape(self, key) -> None:
         hit = key in self._seen_shapes
@@ -123,11 +155,47 @@ class CohortEngine:
                                  self.cfg.aggregator == "fedprox")
 
     @staticmethod
-    def _fedavg_partial(stacked: Tree, weights: torch.Tensor,
+    def _f32_partial(stacked: Tree, weights: torch.Tensor) -> Tree:
+        """sum_c w_c * params_c in float32."""
+        return {k: torch.tensordot(weights, v.float(), dims=1)
+                for k, v in stacked.items()}
+
+    @classmethod
+    def _fedavg_partial(cls, stacked: Tree, weights: torch.Tensor,
                         global_params: Tree) -> Tree:
         """sum_c w_c * params_c in float32, cast to the params' dtype."""
-        return {k: torch.tensordot(weights, v.float(), dims=1).to(
-                    global_params[k].dtype) for k, v in stacked.items()}
+        return {k: v.to(global_params[k].dtype)
+                for k, v in cls._f32_partial(stacked, weights).items()}
+
+    def _mesh_reduce(self, partials: Sequence[Tree], like: Tree) -> Tree:
+        """The shards' float32 partials added on the mesh's first device
+        in shard order, then cast to the dtypes of ``like``'s leaves
+        (JAX's ``psum(p).astype(dtype)``)."""
+        first = self.mesh.devices[0]
+        total = {k: v.to(first, non_blocking=True)
+                 for k, v in partials[0].items()}
+        for part in partials[1:]:
+            total = {k: total[k] + part[k].to(first, non_blocking=True)
+                     for k in total}
+        return {k: v.to(like[k].dtype) for k, v in total.items()}
+
+    def _sharded(self, specs: Sequence[str], args: Sequence
+                 ) -> List[tuple]:
+        """Each shard's arguments under ``specs``: a replicated one is
+        taken per shard as given; a split one (a host array) is cut on
+        axis 0 and uploaded to the shard's device, in one counted upload
+        a shard."""
+        n = self.data_axis_size
+        split = [i for i, spec in enumerate(specs) if spec == rules.DATA]
+        out = []
+        for s, dev in enumerate(self.mesh.devices):
+            mine = [rules.shard_of(spec, a, s, n)
+                    for spec, a in zip(specs, args)]
+            put = obs.device_put(tuple(mine[i] for i in split), dev)
+            for i, t in zip(split, put):
+                mine[i] = t
+            out.append(tuple(mine))
+        return out
 
     @staticmethod
     def _flat_deltas(stacked: Tree, global_params: Tree) -> torch.Tensor:
@@ -158,14 +226,37 @@ class CohortEngine:
     def train_cohort(self, global_params: Tree,
                      buckets: List[CohortBucket]) -> Optional[Tree]:
         """Aggregated params over all buckets, or None for an empty
-        cohort.  Weights are global, so bucket partials just add."""
+        cohort.  Weights are global, so bucket partials just add.  With
+        a mesh, each bucket's client axis is split over the shards (the
+        params copied to the mesh devices once for all buckets)."""
+        replicas = (self.replicate(global_params)
+                    if self.mesh is not None and buckets else None)
         agg = None
         for b in buckets:
             self._note_shape(("bucket", b.xb.shape))
-            _, part = self.train_bucket(global_params, b)
+            if replicas is None:
+                _, part = self.train_bucket(global_params, b)
+            else:
+                part = self._train_bucket_sharded(replicas, b)
             agg = part if agg is None else {k: agg[k] + part[k]
                                             for k in agg}
         return agg
+
+    def _train_bucket_sharded(self, replicas: Sequence[Tree],
+                              bucket: CohortBucket) -> Tree:
+        """One host-packed bucket over the mesh: the cohort rules split
+        its arrays, each shard trains its rows on its device from its
+        replica of the params, and the float32 partials are reduced."""
+        specs = (rules.cohort_param_spec(),) + rules.cohort_bucket_specs()
+        partials = []
+        for params, xb, yb, mask, w in self._sharded(
+                specs, (replicas, bucket.xb, bucket.yb, bucket.step_mask,
+                        bucket.weights)):
+            stacked = self._train_steps(
+                params, ((xb[:, s], yb[:, s]) for s in range(xb.shape[1])),
+                mask)
+            partials.append(self._f32_partial(stacked, w))
+        return self._mesh_reduce(partials, replicas[0])
 
     def train_bucket_updates(self, global_params: Tree,
                              bucket: CohortBucket) -> torch.Tensor:
@@ -190,21 +281,36 @@ class CohortEngine:
             ((xg[cl, plans[:, s]], yg[cl, plans[:, s]])
              for s in range(plans.shape[1])), step_mask)
 
-    def train_class(self, global_params: Tree, class_x: torch.Tensor,
-                    class_y: torch.Tensor, rows: torch.Tensor,
-                    plans: torch.Tensor, step_mask: torch.Tensor,
-                    weights: torch.Tensor) -> Tree:
+    def train_class(self, global_params, class_x, class_y, rows, plans,
+                    step_mask, weights) -> Tree:
         """One capacity-class invocation of the device-resident trainer:
         ``class_x/class_y`` are the class's resident ``(P, n_cap, ...)``
         store, ``rows (C,)``, ``plans (C, S, bs)`` (int64), ``step_mask
         (C, S)`` and ``weights (C,)`` the invocation's tensors
         (repro_torch.sim.fleet.ClassBatch) on the same device.  Returns
-        the weighted FedAvg partial; partials across invocations add."""
-        self._note_shape(("class", tuple(class_x.shape),
+        the weighted FedAvg partial; partials across invocations add.
+
+        With a mesh the arguments follow ``cohort_param_spec`` and
+        ``fleet_class_specs``: the replicated ones (params, store) one
+        entry per shard (:meth:`replicate`, ``CapacityClass.xs``), the
+        split ones (rows, plans, step_mask, weights) as host arrays,
+        which the shards cut on their client axis."""
+        if self.mesh is None:
+            self._note_shape(("class", tuple(class_x.shape),
+                              tuple(plans.shape)))
+            stacked = self._class_steps(global_params, class_x, class_y,
+                                        rows, plans, step_mask)
+            return self._fedavg_partial(stacked, weights, global_params)
+        self._note_shape(("class", tuple(class_x[0].shape),
                           tuple(plans.shape)))
-        stacked = self._class_steps(global_params, class_x, class_y, rows,
-                                    plans, step_mask)
-        return self._fedavg_partial(stacked, weights, global_params)
+        specs = (rules.cohort_param_spec(),) + rules.fleet_class_specs()
+        partials = []
+        for params, cx, cy, r, p, m, w in self._sharded(
+                specs, (global_params, class_x, class_y, rows, plans,
+                        step_mask, weights)):
+            stacked = self._class_steps(params, cx, cy, r, p, m)
+            partials.append(self._f32_partial(stacked, w))
+        return self._mesh_reduce(partials, global_params[0])
 
     def train_class_updates(self, global_params: Tree,
                             class_x: torch.Tensor, class_y: torch.Tensor,

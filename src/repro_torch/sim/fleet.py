@@ -15,7 +15,9 @@ auction.  The ``device`` runtime replaces both:
 * **Static shapes.**  Class key = (batch size, pow2 band of total local
   steps), derived from the whole fleet; step capacity = the class's
   largest step count rounded up to a multiple of 4; client capacity = a
-  pow2 **tier ladder** up to the per-round winner bound.  Every possible
+  pow2 **tier ladder** up to the per-round winner bound (each tier
+  rounded to a multiple of the cohort mesh's data-axis size, so an
+  invocation splits evenly over its shards).  Every possible
   winner maps to a known class and every winner count to a known tier,
   so ``DeviceRuntime.warmup`` meets every shape the round loop can
   produce (``CohortEngine.stats`` counts none new afterwards); a class
@@ -23,14 +25,14 @@ auction.  The ``device`` runtime replaces both:
   (greedy largest-fitting-tier chunking).
 
 Padding stays under 2x on both axes, as in the bucket packer; masked rows
-carry weight 0 and drop out of the FedAvg sum exactly.  The JAX store's
-``client_multiple`` (tiers rounded to the mesh's data-axis size) is not
-ported: the port has no mesh yet (ROADMAP.md, queue 1).
+carry weight 0 and drop out of the FedAvg sum exactly.  On a cohort mesh
+the class store is replicated: each distinct mesh device holds its own
+copy (``CapacityClass.xs`` / ``ys``, one entry per shard).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,7 +40,7 @@ import torch
 from repro_torch import obs
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.selection import k_per_cluster
-from repro_torch.device import resolve_device
+from repro_torch.device import canonical_device, resolve_device
 from repro_torch.sim.cohort import HostPlanCache, _next_pow2, _round_up
 
 
@@ -50,7 +52,9 @@ class CapacityClass:
     local shards of the class's ``P`` members, each padded to the class
     max size ``n_cap`` (plans never index the padding).  ``tiers`` is
     the ascending pow2 ladder of padded client-axis sizes an invocation
-    may use.
+    may use (every tier a multiple of the mesh's data-axis size).  On a
+    mesh, ``xs`` / ``ys`` hold the store once per shard, on the shard's
+    device (``x`` / ``y`` themselves where it is the store's device).
     """
 
     bs: int
@@ -60,6 +64,8 @@ class CapacityClass:
     members: np.ndarray      # (P,) global client ids
     x: torch.Tensor
     y: torch.Tensor
+    xs: Tuple[torch.Tensor, ...] = ()
+    ys: Tuple[torch.Tensor, ...] = ()
 
     @property
     def client_cap(self) -> int:
@@ -90,8 +96,13 @@ class FleetStore:
     """Pack the whole fleet once; assemble cohorts as index arrays."""
 
     def __init__(self, x: np.ndarray, y: np.ndarray, clients,
-                 cfg: FLConfig, cache: Optional[HostPlanCache] = None,
-                 device="cuda"):
+                 cfg: FLConfig, client_multiple: int = 1,
+                 cache: Optional[HostPlanCache] = None, device="cuda",
+                 mesh=None):
+        """``client_multiple`` rounds every tier up to a multiple of it
+        (the mesh's data-axis size); with a ``mesh`` (launch/mesh.py's
+        CohortMesh) the store is also placed on each distinct mesh
+        device."""
         device = resolve_device(device)
         self.cfg = cfg
         self.cache = cache if cache is not None \
@@ -113,6 +124,7 @@ class FleetStore:
         # can push the union above it (num_clusters x K_j)
         k_total = max(int(round(cfg.select_ratio * cfg.num_clients)), 1)
         k_bound = max(k_total, cfg.num_clusters * k_per_cluster(cfg))
+        mult = max(int(client_multiple), 1)
 
         self.classes: List[CapacityClass] = []
         for (bs, _band), members in sorted(groups.items()):
@@ -120,11 +132,15 @@ class FleetStore:
             n_cap = int(self.cache.sizes[members].max())
             step_cap = _round_up(int(total_steps[members].max()), 4)
             cap = min(len(members), k_bound)
-            tiers, t = [], 1                 # pow2 ladder up to the bound
+            # pow2 ladder 1, 2, 4, ... up to the winner bound, every tier
+            # rounded to the data-axis multiple (rounding collapses small
+            # tiers on a big mesh: the set drops the duplicates)
+            tiers, t = [], 1
             while t < cap:
-                tiers.append(t)
+                tiers.append(_round_up(t, mult))
                 t *= 2
-            tiers = sorted(set(tiers + [cap]))
+            tiers.append(_round_up(cap, mult))
+            tiers = sorted(set(tiers))
             xb = np.zeros((len(members), n_cap) + x.shape[1:], x.dtype)
             yb = np.zeros((len(members), n_cap), y.dtype)
             for r, gid in enumerate(members):
@@ -134,9 +150,19 @@ class FleetStore:
                 self.class_of[gid] = len(self.classes)
                 self.row_of[gid] = r
             xd, yd = obs.device_put((xb, yb), device)
+            xs, ys = (), ()
+            if mesh is not None:
+                # one counted upload per distinct mesh device; the shards
+                # on one device read one copy
+                copies = {canonical_device(device): (xd, yd)}
+                for dev in mesh.devices:
+                    if dev not in copies:
+                        copies[dev] = obs.device_put((xb, yb), dev)
+                xs = tuple(copies[dev][0] for dev in mesh.devices)
+                ys = tuple(copies[dev][1] for dev in mesh.devices)
             self.classes.append(CapacityClass(
                 bs=bs, step_cap=step_cap, tiers=tiers, n_cap=n_cap,
-                members=members, x=xd, y=yd))
+                members=members, x=xd, y=yd, xs=xs, ys=ys))
 
     # ------------------------------------------------------------------
     def _empty_batch(self, cls_id: int, tier: int) -> ClassBatch:

@@ -9,21 +9,30 @@
     each bucket trains as one vmapped program per step with the FedAvg
     partial fused in.  Stage 1's gradient features are one batched pass
     too, over windows gathered on the device.
+  * ``sharded`` — the vectorized engine over the cohort mesh
+    (repro_torch.launch.mesh.make_cohort_mesh, ``--cohort-devices``):
+    each bucket's client axis is split over the mesh's ``data`` axis,
+    every shard trains on its own device from its copy of the params,
+    and the float32 FedAvg partials are summed on the runtime's device.
+    On one device it is the same program at a data size of 1.
   * ``device`` — the device-resident fleet (repro_torch.sim.fleet): every
     client's data is packed once at init into static capacity classes on
     the device; a round sends only small index tensors, and
     :meth:`DeviceRuntime.warmup` meets every class shape before round 0.
+    On a mesh of more than one device each invocation's client axis is
+    split as in ``sharded``, over a store held on every mesh device.
 
 All backends train on the same shuffles, batch boundaries and FedAvg
 weights; results agree up to float reassociation, and the selection logs
 are identical.  For the defended path each also has
 ``train_cohort_updates``: the same local training, returning the
 cohort's per-client flat deltas (``core/aggregation.UpdateBatch``)
-instead of their FedAvg.  ``sharded`` (the multi-GPU mesh) is not ported
-yet (ROADMAP.md, queue 1).
+instead of their FedAvg, always on the runtime's device.  The batched
+runtimes add their host packing seconds up in ``host_pack_s``.
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -34,7 +43,8 @@ from repro_torch.configs.base import FLConfig
 from repro_torch.core.adapters import ModelAdapter
 from repro_torch.core.aggregation import UpdateBatch, flat_delta
 from repro_torch.core.clustering import window_index_table
-from repro_torch.device import resolve_device, synchronize
+from repro_torch.device import canonical_device, resolve_device, synchronize
+from repro_torch.launch import mesh as MESH
 from repro_torch.optim import apply_updates, fedprox_grad, sgd
 from repro_torch.sim.cohort import (HostPlanCache, drop_zero_size_winners,
                                     oracle_batch_plan, pack_cohort,
@@ -148,9 +158,15 @@ class VectorizedRuntime(SequentialRuntime):
     name = "vectorized"
 
     def __init__(self, cfg: FLConfig, adapter: ModelAdapter,
-                 x: np.ndarray, y: np.ndarray, clients, device="cuda"):
+                 x: np.ndarray, y: np.ndarray, clients, device="cuda",
+                 mesh=None):
         super().__init__(cfg, adapter, x, y, clients, device)
-        self.engine = CohortEngine(adapter, cfg)
+        if mesh is not None and mesh.devices[0] != canonical_device(
+                self.device):
+            raise ValueError(f"the cohort mesh starts on {mesh.devices[0]}"
+                             f", the runtime runs on {self.device}")
+        self.engine = CohortEngine(adapter, cfg, mesh=mesh)
+        self.host_pack_s = 0.0   # host packing seconds, all rounds
         self.x_host, self.y_host = np.asarray(x), np.asarray(y)
         # memoized plan structure and local shards: packing rebuilds only
         # the shuffle permutations per round
@@ -165,11 +181,15 @@ class VectorizedRuntime(SequentialRuntime):
         self._shards = torch.tensor(shards, device=self.device)
         self._sizes = torch.tensor(sizes, device=self.device)
 
-    def _pack(self, sel_idx, history):
+    def _pack(self, sel_idx, history, client_multiple: int = 1):
+        t0 = time.perf_counter()
         with obs.span("cohort/pack"):
-            return pack_cohort(self.x_host, self.y_host, self.clients,
-                               sel_idx, history, self.cfg,
-                               cache=self.plan_cache)
+            buckets = pack_cohort(self.x_host, self.y_host, self.clients,
+                                  sel_idx, history, self.cfg,
+                                  client_multiple=client_multiple,
+                                  cache=self.plan_cache)
+        self.host_pack_s += time.perf_counter() - t0
+        return buckets
 
     def train_cohort(self, global_params: Tree, sel_idx: np.ndarray,
                      history: np.ndarray) -> Optional[Tree]:
@@ -180,7 +200,10 @@ class VectorizedRuntime(SequentialRuntime):
     def train_cohort_updates(self, global_params: Tree, sel_idx: np.ndarray,
                              history: np.ndarray) -> Optional[UpdateBatch]:
         """Per-bucket flat deltas, concatenated in bucket order (padding
-        rows ride along with id -1 and weight 0)."""
+        rows ride along with id -1 and weight 0).  ``sharded`` inherits
+        it as it is: the screened reduction downstream takes one
+        device's rows, so it packs with ``client_multiple`` 1 and runs
+        unsplit."""
         buckets = self._pack(sel_idx, history)
         if not buckets:
             return None
@@ -223,20 +246,56 @@ class VectorizedRuntime(SequentialRuntime):
                 self.y[rows].reshape(shape))
 
 
+class ShardedRuntime(VectorizedRuntime):
+    """The cohort engine over the cohort mesh: each bucket's client axis
+    is split over the mesh's ``data`` axis (replicated params, one shard
+    a mesh entry, float32 partials summed on the first device).  The
+    packer pads every bucket's client axis to a multiple of the
+    data-axis size so the split is even; at a data size of 1 it is the
+    same program on one device.  The clustering feature passes and the
+    defended updates are the vectorized runtime's."""
+
+    name = "sharded"
+
+    def __init__(self, cfg: FLConfig, adapter: ModelAdapter,
+                 x: np.ndarray, y: np.ndarray, clients, device="cuda",
+                 mesh=None):
+        if mesh is None:
+            mesh = MESH.make_cohort_mesh(cfg.cohort_mesh_devices, device)
+        super().__init__(cfg, adapter, x, y, clients, device, mesh=mesh)
+
+    def train_cohort(self, global_params: Tree, sel_idx: np.ndarray,
+                     history: np.ndarray) -> Optional[Tree]:
+        with obs.span("cohort/train"):
+            buckets = self._pack(sel_idx, history,
+                                 client_multiple=self.engine.data_axis_size)
+            return self.engine.train_cohort(global_params, buckets)
+
+
 class DeviceRuntime(VectorizedRuntime):
     """Device-resident fleet backend (repro_torch.sim.fleet): the fleet's
     data lives on the device in static capacity classes, a round's host
     work is assembling small index plans, and every invocation has a
-    class shape that :meth:`warmup` has already met.  The clustering
-    feature passes are the vectorized runtime's."""
+    class shape that :meth:`warmup` has already met.  On a cohort mesh of
+    more than one device each invocation's client axis is split over
+    ``data``, over a class store held on every mesh device, as in
+    ``sharded``; on one device no mesh is kept.  The clustering feature
+    passes and the defended updates run on the runtime's device."""
 
     name = "device"
 
     def __init__(self, cfg: FLConfig, adapter: ModelAdapter,
-                 x: np.ndarray, y: np.ndarray, clients, device="cuda"):
-        super().__init__(cfg, adapter, x, y, clients, device)
+                 x: np.ndarray, y: np.ndarray, clients, device="cuda",
+                 mesh=None):
+        if mesh is None:
+            m = MESH.make_cohort_mesh(cfg.cohort_mesh_devices, device)
+            # a 1-device mesh would only add the shard loop
+            mesh = m if m.shape["data"] > 1 else None
+        super().__init__(cfg, adapter, x, y, clients, device, mesh=mesh)
         self.store = FleetStore(self.x_host, self.y_host, clients, cfg,
-                                cache=self.plan_cache, device=self.device)
+                                client_multiple=self.engine.data_axis_size,
+                                cache=self.plan_cache, device=self.device,
+                                mesh=mesh)
         # the class tensors now hold the fleet on the device
         self.plan_cache.drop_local_data()
         self._warmed = False
@@ -248,12 +307,15 @@ class DeviceRuntime(VectorizedRuntime):
         fused one).  Idempotent."""
         if self._warmed:
             return
-        for b in self.store.warmup_batches():
-            staged = self._put_batch(b)
-            if self.cfg.defended:
-                self.engine.train_class_updates(global_params, *staged[:5])
-            else:
-                self.engine.train_class(global_params, *staged)
+        batches = self.store.warmup_batches()
+        if self.cfg.defended:
+            for b in batches:
+                self.engine.train_class_updates(global_params,
+                                                *self._put_batch(b)[:5])
+        else:
+            params = self._class_params(global_params)
+            for b in batches:
+                self.engine.train_class(params, *self._class_args(b))
         self._warmed = True
 
     def _put_batch(self, b: ClassBatch):
@@ -265,25 +327,53 @@ class DeviceRuntime(VectorizedRuntime):
              b.step_mask, b.weights), self.device)
         return c.x, c.y, rows, plans, mask, w
 
-    def train_cohort(self, global_params: Tree, sel_idx: np.ndarray,
-                     history: np.ndarray) -> Optional[Tree]:
+    def _class_params(self, global_params: Tree):
+        """``train_class``'s params: on a mesh, copied to the mesh
+        devices (once for all of a round's batches)."""
+        return (global_params if self.engine.mesh is None
+                else self.engine.replicate(global_params))
+
+    def _class_args(self, b: ClassBatch) -> tuple:
+        """``train_class``'s arguments past the params for one batch: on a
+        mesh, the per-shard stores and the host index arrays, which the
+        engine splits by ``fleet_class_specs``."""
+        if self.engine.mesh is None:
+            return self._put_batch(b)
+        c = self.store.classes[b.cls_id]
+        return (c.xs, c.ys, np.asarray(b.rows, np.int64),
+                np.asarray(b.plans, np.int64), b.step_mask, b.weights)
+
+    def _train_classes(self, global_params: Tree,
+                       batches: List[ClassBatch]) -> Optional[Tree]:
+        """The FedAvg aggregate over the batches (partials add)."""
+        if not batches:
+            return None
+        params = self._class_params(global_params)
+        agg = None
+        for b in batches:
+            part = self.engine.train_class(params, *self._class_args(b))
+            agg = part if agg is None else {k: agg[k] + part[k]
+                                            for k in agg}
+        return agg
+
+    def _assemble(self, sel_idx, history) -> List[ClassBatch]:
+        t0 = time.perf_counter()
         with obs.span("cohort/assemble"):
             batches = self.store.assemble(sel_idx, np.asarray(history))
+        self.host_pack_s += time.perf_counter() - t0
+        return batches
+
+    def train_cohort(self, global_params: Tree, sel_idx: np.ndarray,
+                     history: np.ndarray) -> Optional[Tree]:
+        batches = self._assemble(sel_idx, history)
         with obs.span("cohort/train"):
-            agg = None
-            for b in batches:
-                part = self.engine.train_class(global_params,
-                                               *self._put_batch(b))
-                agg = part if agg is None else {k: agg[k] + part[k]
-                                                for k in agg}
-            return agg
+            return self._train_classes(global_params, batches)
 
     def train_cohort_updates(self, global_params: Tree, sel_idx: np.ndarray,
                              history: np.ndarray) -> Optional[UpdateBatch]:
         """Per-class flat deltas, concatenated in batch order (padding
         rows ride along with id -1 and weight 0)."""
-        with obs.span("cohort/assemble"):
-            batches = self.store.assemble(sel_idx, np.asarray(history))
+        batches = self._assemble(sel_idx, history)
         if not batches:
             return None
         with obs.span("cohort/train", defended=True):
@@ -303,11 +393,9 @@ def make_runtime(cfg: FLConfig, adapter: ModelAdapter, x, y, clients,
         return SequentialRuntime(cfg, adapter, x, y, clients, device)
     if cfg.runtime == "vectorized":
         return VectorizedRuntime(cfg, adapter, x, y, clients, device)
+    if cfg.runtime == "sharded":
+        return ShardedRuntime(cfg, adapter, x, y, clients, device)
     if cfg.runtime == "device":
         return DeviceRuntime(cfg, adapter, x, y, clients, device)
-    if cfg.runtime == "sharded":
-        raise NotImplementedError(
-            "runtime 'sharded' is not ported yet (ROADMAP.md, queue 1: "
-            "the sharded runtime and --cohort-devices)")
     raise ValueError(
         f"unknown FLConfig.runtime={cfg.runtime!r}; expected {RUNTIMES}")

@@ -333,7 +333,7 @@ RUNTIME_KW = dict(num_clients=10, num_clusters=3, select_ratio=0.4,
                   cluster_resamples=2, init_energy_mode="normal", seed=3)
 
 
-@pytest.mark.parametrize("runtime", ["vectorized", "device"])
+@pytest.mark.parametrize("runtime", ["vectorized", "sharded", "device"])
 def test_batched_runtime_on_cuda_matches_cpu(cuda, runtime):
     from repro_torch import rng
     from repro_torch.configs.base import FLConfig
@@ -484,7 +484,8 @@ def test_fault_step_and_dynamics_round_step_on_cuda_match_cpu(cuda,
             assert torch.equal(u, v)
 
 
-@pytest.mark.parametrize("runtime", ["sequential", "vectorized", "device"])
+@pytest.mark.parametrize("runtime", ["sequential", "vectorized", "sharded",
+                                     "device"])
 def test_audited_dynamics_run_on_cuda_matches_cpu(cuda, runtime):
     """A buffered faulty run with its warm rounds under the sync auditor
     on the card selects and classifies as the CPU run, params within
@@ -513,6 +514,42 @@ def test_audited_dynamics_run_on_cuda_matches_cpu(cuda, runtime):
                          {k: v.cpu() for k, v in srv.params.items()})
     (s0, o0, p0), (s1, o1, p1) = got["cpu"], got[str(cuda)]
     assert s0 == s1 and o0 == o1
+    for k in p0:
+        assert float((p0[k] - p1[k]).abs().max()) < 1e-4, k
+
+
+@pytest.mark.parametrize("runtime", ["sharded", "device"])
+def test_forced_split_on_cuda_matches_cpu(cuda, runtime, monkeypatch):
+    """``sharded`` and ``device`` on a cohort mesh that lists the run's
+    device 4 times (4 shards), warm rounds under the sync auditor on the
+    card: the CPU run's winners, params within 1e-4."""
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core.adapters import cnn_adapter
+    from repro_torch.core.server import FederatedServer
+    from repro_torch.data.partition import partition_clients
+    from repro_torch.data.synthetic import make_image_dataset
+    from repro_torch.device import canonical_device
+    from repro_torch.launch import mesh as MESH
+
+    monkeypatch.setattr(MESH, "make_cohort_mesh",
+                        lambda num_devices=0, device="cuda":
+                        MESH.CohortMesh((canonical_device(device),) * 4))
+    cfg = FLConfig(**dict(RUNTIME_KW, rounds=3), runtime=runtime)
+    train, test = make_image_dataset("mnist", n_train=700, n_test=120,
+                                     seed=3, device="cpu")
+    clients = partition_clients(train.y, cfg, seed=3)
+    got = {}
+    for dev in ("cpu", cuda):
+        srv = FederatedServer(cfg, cnn_adapter("mnist", dev), train.x,
+                              train.y, clients,
+                              {"x": test.x[:64], "y": test.y[:64]},
+                              device=dev)
+        assert srv.runtime.engine.data_axis_size == 4
+        logs = srv.run(audit_sync=True, audit_warm_rounds=1)
+        got[str(dev)] = ([l.selected.tolist() for l in logs],
+                         {k: v.cpu() for k, v in srv.params.items()})
+    (s0, p0), (s1, p1) = got["cpu"], got[str(cuda)]
+    assert s0 == s1
     for k in p0:
         assert float((p0[k] - p1[k]).abs().max()) < 1e-4, k
 
@@ -675,7 +712,8 @@ def test_chunked_xent_backward_on_cuda_matches_cpu(cuda):
                                    atol=1e-6)
 
 
-@pytest.mark.parametrize("runtime", ["sequential", "vectorized", "device"])
+@pytest.mark.parametrize("runtime", ["sequential", "vectorized", "sharded",
+                                     "device"])
 def test_transformer_fl_on_cuda_matches_cpu(cuda, runtime):
     """--mode transformer for 2 rounds at 10 clients: the same winners
     and test losses on the card as on the CPU."""

@@ -1,6 +1,6 @@
 """The port stands alone: no module of src/repro_torch/ (and no line of
 chip_smoke.py, of the port's examples, examples/*_torch.py, or of the
-kernel timing script tools/flash_fp32_timing.py) imports
+scripts tools/flash_fp32_timing.py and tools/cohort_mesh_check.py) imports
 jax or the JAX package, and importing the CLI leaves jax out of
 sys.modules."""
 import ast
@@ -13,7 +13,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "flash_fp32_timing.py"] + [
+    ROOT / "chip_smoke.py", ROOT / "tools" / "flash_fp32_timing.py",
+    ROOT / "tools" / "cohort_mesh_check.py"] + [
     ROOT / "examples" / f"{name}_torch.py" for name in (
         "quickstart", "scheme_comparison", "fl_pretrain_lm",
         "serve_decode")]
@@ -34,6 +35,13 @@ def test_no_jax_or_reference_imports(path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "repro", "flax", "optax"), \
             f"{path.relative_to(ROOT)} imports {mod}"
+
+
+@pytest.mark.parametrize("rel", ["launch/mesh.py", "sharding/rules.py"])
+def test_cohort_mesh_modules_are_checked(rel):
+    """The cohort mesh and rules, which mirror JAX modules, are among the
+    files checked above."""
+    assert ROOT / "src" / "repro_torch" / rel in FILES
 
 
 def test_importing_cli_does_not_load_jax():

@@ -21,6 +21,7 @@ from repro_torch.core import schemes as TSCH
 from repro_torch.core.adapters import cnn_adapter as t_adapter
 from repro_torch.core.server import FederatedServer as TServer
 from repro_torch.data import synthetic as TSYN
+from repro_torch.launch import mesh as TMESH
 from repro_torch.launch import train as TRAIN
 from repro_torch.models import cnn as TCNN
 from repro_torch.models import layers as TLAYERS
@@ -107,6 +108,10 @@ DEFAULT_DEVICE_CALLS = {
     "make_runtime(device)": lambda d: make_runtime(
         FLConfig(**KW, runtime="device"), t_adapter("mnist", "cpu"),
         d[0].x, d[0].y, d[1]),
+    "make_runtime(sharded)": lambda d: make_runtime(
+        FLConfig(**KW, runtime="sharded"), t_adapter("mnist", "cpu"),
+        d[0].x, d[0].y, d[1]),
+    "make_cohort_mesh": lambda d: TMESH.make_cohort_mesh(),
     "FleetStore": lambda d: FleetStore(d[0].x, d[0].y, d[1],
                                        FLConfig(**KW)),
     "init_energy": lambda d: TE.init_energy(FLConfig(**KW), rng.PRNGKey(0)),
@@ -170,12 +175,43 @@ SMALL = ["--clients", "12", "--clusters", "3", "--rounds", "1", "--pool",
          "1200", "--quiet"]
 
 
+def _recording(module, monkeypatch):
+    """Keep every FederatedServer ``module``'s CLI builds."""
+    servers = []
+
+    class Recording(module.FederatedServer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            servers.append(self)
+
+    monkeypatch.setattr(module, "FederatedServer", Recording)
+    return servers
+
+
+@pytest.fixture(scope="module")
+def jax_cli_vectorized():
+    """The JAX CLI's ``--runtime vectorized`` run at SMALL, made once:
+    (round logs, final params as numpy)."""
+    import repro.launch.train as JTRAIN
+    with pytest.MonkeyPatch.context() as mp:
+        servers = _recording(JTRAIN, mp)
+        mp.setattr("sys.argv", ["train", *SMALL, "--runtime",
+                                "vectorized"])
+        JTRAIN.main()
+    srv = servers[-1]
+    return srv.logs, {k: np.asarray(v) for k, v in srv.params.items()}
+
+
 @pytest.mark.parametrize("flag", [["--runtime", "sharded"],
                                   ["--mode", "transformer", "--arch",
                                    "whisper-tiny"],
-                                  ["--cohort-devices", "2"]])
-def test_unported_flags_raise(flag, monkeypatch):
-    """``--runtime sharded`` and ``--cohort-devices`` raise.  whisper-tiny
+                                  ["--cohort-devices", "2", "--runtime",
+                                   "device"]])
+def test_unported_flags_raise(flag, monkeypatch, request):
+    """``--runtime sharded`` and ``--cohort-devices`` used to raise; each
+    now runs on the CPU (a 1-device cohort mesh) and selects what the
+    JAX CLI's ``--runtime vectorized`` run selects, with its round
+    metrics within 1e-5 and its final params within 1e-4.  whisper-tiny
     is ported, and ``--mode transformer`` on it fails in the port as in
     the JAX CLI: the token batches carry no encoder frames, so the
     forward pass raises ``AssertionError`` in both."""
@@ -187,8 +223,19 @@ def test_unported_flags_raise(flag, monkeypatch):
         with pytest.raises(AssertionError):
             TRAIN.main(["--device", "cpu", *SMALL, *flag])
         return
-    with pytest.raises(NotImplementedError):
-        TRAIN.main(["--device", "cpu", *SMALL, *flag])
+    j_logs, j_params = request.getfixturevalue("jax_cli_vectorized")
+    servers = _recording(TRAIN, monkeypatch)
+    out = TRAIN.main(["--device", "cpu", *SMALL, *flag])
+    assert out["runtime"] == flag[flag.index("--runtime") + 1]
+    assert servers[-1].runtime.name == out["runtime"]
+    assert out["selected"] == [l.selected.tolist() for l in j_logs]
+    for f in ("energy_std", "mean_bid", "server_reward", "test_acc",
+              "test_loss"):
+        np.testing.assert_allclose(out[f], [getattr(l, f) for l in j_logs],
+                                   rtol=1e-5, atol=1e-5, err_msg=f)
+    for k, v in j_params.items():
+        np.testing.assert_allclose(servers[-1].params[k].numpy(), v,
+                                   rtol=0, atol=1e-4, err_msg=k)
 
 
 def _summary_lines(text):

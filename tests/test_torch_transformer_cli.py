@@ -1,5 +1,6 @@
 """``python -m repro_torch.launch.train --mode transformer`` against the
-JAX CLI on the CPU, the flags it refuses, and whisper-tiny, which fails
+JAX CLI on the CPU, ``--runtime sharded`` and ``--cohort-devices``
+against its ``--runtime vectorized`` run, and whisper-tiny, which fails
 in both CLIs alike.
 
 The CLI run (``--clients 50 --rounds 2``: 10 FL clients at qwen2-0.5b's
@@ -59,17 +60,33 @@ def test_cli_matches_jax_cli(monkeypatch, capsys):
     assert len(final) == 2 and final[0] == final[1]
 
 
+@pytest.fixture(scope="module")
+def jax_cli_vectorized():
+    """The JAX CLI's ``--runtime vectorized`` run at ARGS, made once:
+    (stage-1 labels, round logs)."""
+    with pytest.MonkeyPatch.context() as mp:
+        servers = _recording(JTRAIN, mp)
+        mp.setattr(sys, "argv", ["train", *ARGS, "--runtime",
+                                 "vectorized"])
+        JTRAIN.main()
+    srv = servers[-1]
+    return np.asarray(srv.state.clusters), srv.logs
+
+
 @pytest.mark.parametrize("flag", [
     ["--arch", "whisper-tiny", "--runtime", "vectorized"],  # encoder-
     ["--arch", "whisper-tiny", "--runtime", "device"],      # decoder
-    ["--cohort-devices", "2"],
+    ["--cohort-devices", "2", "--runtime", "device"],
     ["--arch", "whisper-tiny"],
     ["--runtime", "sharded"],
 ])
-def test_unported_transformer_flags_raise(flag, monkeypatch):
-    """``--runtime sharded`` and ``--cohort-devices`` raise.  whisper-tiny
-    fails on every runtime in the port as in the JAX CLI, both run here:
-    its token batches carry no encoder frames, so the forward pass raises
+def test_unported_transformer_flags_raise(flag, monkeypatch, request):
+    """``--runtime sharded`` and ``--cohort-devices`` used to raise; each
+    now trains on the CPU (a 1-device cohort mesh) with the JAX CLI's
+    ``--runtime vectorized`` labels and winners, and its test loss,
+    accuracy and energy std within 1e-5.  whisper-tiny fails on every
+    runtime in the port as in the JAX CLI, both run here: its token
+    batches carry no encoder frames, so the forward pass raises
     ``AssertionError``."""
     if "whisper-tiny" in flag:
         monkeypatch.setattr("sys.argv", ["train", *ARGS, *flag])
@@ -78,5 +95,13 @@ def test_unported_transformer_flags_raise(flag, monkeypatch):
         with pytest.raises(AssertionError):
             TRAIN.main(["--device", "cpu", *ARGS, *flag])
         return
-    with pytest.raises(NotImplementedError):
-        TRAIN.main(["--device", "cpu", *ARGS, *flag])
+    j_clusters, j_logs = request.getfixturevalue("jax_cli_vectorized")
+    t_servers = _recording(TRAIN, monkeypatch)
+    got = TRAIN.main(["--device", "cpu", *ARGS, *flag])
+    ts = t_servers[-1]
+    assert ts.runtime.name == got["runtime"] == flag[-1]
+    np.testing.assert_array_equal(ts.state.clusters.numpy(), j_clusters)
+    assert got["selected"] == [l.selected.tolist() for l in j_logs]
+    for f in ("test_loss", "test_acc", "energy_std"):
+        np.testing.assert_allclose(got[f], [getattr(l, f) for l in j_logs],
+                                   rtol=1e-5, atol=1e-5, err_msg=f)
