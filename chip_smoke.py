@@ -204,6 +204,26 @@
    subprocess (EXAMPLE_RUNS, all started together; scheme_comparison at
    5 rounds, serve_decode also on whisper-tiny); each must exit 0 and
    prints its ``lloyd_step`` launches, which the kernels line adds.
+20. FL round step (after the full-width train step):
+   ``make_fl_round_step`` on qwen2-0.5b's full CONFIG (24 layers, bf16,
+   remat) with FL_COHORTS cohorts (``PRNGKey(c)`` each), FL_LOCAL_STEPS
+   local steps over 1 x FL_TOKENS tokens a micro-batch, then the FedAvg:
+   the cohorts bit-identical after the round, the loss finite, the
+   parameters moved, cold and warm seconds of a round.  Then the same
+   round at 2 layers, full width, float32 on the card against the port's
+   round on the CPU (largest parameter difference within FL_TOL,
+   tests/test_sim.py's bound), and ``fl_aggregate`` with unequal weights
+   on the card against the CPU within FL_AGG_TOL.
+21. Dry run (last): ``python -m repro_torch.launch.dryrun`` for
+   qwen2-0.5b at DRYRUN_COMBOS (train_4k and decode_32k on the 16 x 16
+   mesh, train_4k's FL round with 4 local steps on 2 x 16 x 16), fake
+   tensors on cuda over a fake 256- or 512-rank process group, each its
+   own process started before the kernel phases and read here; then the
+   port's roofline over the records.  Each record ``ok``, ``n_params``
+   the full model's parameter count, no cross-pod bytes on the one-pod
+   mesh, and on the FL round's exactly the FedAvg's float32 all-reduce
+   of the device's parameter shard; each record's headline and roofline
+   row printed.
 
 It prints one JSON line with the kernels' numbers and, last, the JSON
 status line.  ``--profile`` adds a torch.profiler pass before them:
@@ -218,10 +238,12 @@ raises.
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import importlib
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -714,6 +736,18 @@ ATTN_BWD_TOL = (1e-3, 1e-4)
 # largest magnitude (the two differ in the order of fp32 sums of up to
 # 151,936 terms, about 2^-24 * sqrt(151,936) = 2.3e-5 relative)
 XENT_VALUE_TOL, XENT_GRAD_TOL = 1e-5, 1e-4
+# the FL round step: qwen2-0.5b's CONFIG, 2 cohorts (pods in the dry
+# run), 2 local SGD steps over 1 x 1,024 tokens each, then one FedAvg;
+# card against CPU at 2 layers in float32 within tests/test_sim.py's
+# engine-vs-oracle bound, and fl_aggregate within 1e-6
+FL_COHORTS, FL_LOCAL_STEPS, FL_TOKENS, FL_CPU_LAYERS = 2, 2, 1024, 2
+FL_TOL, FL_AGG_TOL = 1e-4, 1e-6
+FL_WEIGHTS = (3.0, 1.0)
+# the dry run's combos for qwen2-0.5b: (shape, multi_pod, fl_local_steps)
+DRYRUN_COMBOS = (("train_4k", False, 0), ("decode_32k", False, 0),
+                 ("train_4k", True, 4))
+DRYRUN_DIR = ROOT / "build" / "chip_smoke" / "dryrun"
+DRYRUN_TIMEOUT_S = 900
 
 
 def require(cond: bool, msg: str) -> None:
@@ -3020,6 +3054,167 @@ def train_step_path(cuda, card) -> None:
                 f"xent {name}: {err} > {XENT_GRAD_TOL} x {scale}")
 
 
+def fl_cohorts(cfg, device):
+    """The flat parameters of FL_COHORTS cohorts, cohort c drawn from
+    ``PRNGKey(c)`` on ``device``, stacked on a leading cohort dim."""
+    from repro_torch import rng
+    from repro_torch.models import model as MD
+    trees = [MD.flatten_params(MD.init_params(cfg, rng.PRNGKey(c), device))
+             for c in range(FL_COHORTS)]
+    return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
+
+
+def fl_batch(cfg, device, seed=0):
+    """(FL_COHORTS, FL_LOCAL_STEPS, 1, FL_TOKENS) next-token batches."""
+    g = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size,
+                         (FL_COHORTS, FL_LOCAL_STEPS, 1, FL_TOKENS + 1),
+                         generator=g)
+    return {"tokens": toks[..., :-1].to(device),
+            "labels": toks[..., 1:].to(device),
+            "mask": torch.ones(toks[..., 1:].shape, device=device)}
+
+
+def fl_round_path(cuda, card) -> None:
+    """``make_fl_round_step`` at full width on the card, then at 2 layers
+    in float32 against the CPU, and ``fl_aggregate`` likewise."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.steps import fl_aggregate, make_fl_round_step
+    from repro_torch.models import model as MD
+
+    cfg = get_config(ARCH)
+    require(cfg.remat and cfg.dtype == "bfloat16",
+            f"{cfg.name}: not the full config")
+    step = make_fl_round_step(cfg, local_steps=FL_LOCAL_STEPS,
+                              n_cohorts=FL_COHORTS)
+    flat, batch = fl_cohorts(cfg, cuda), fl_batch(cfg, cuda)
+    secs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out, loss = step(MD.nested_params(flat), batch)
+        loss = float(loss)                             # waits for the round
+        secs.append(time.perf_counter() - t)
+    out = MD.flatten_params(out)
+    require(math.isfinite(loss), f"fl round: non-finite loss {loss}")
+    require(all(torch.equal(v[0], v[c]) for v in out.values()
+                for c in range(1, FL_COHORTS)),
+            "fl round: the cohorts differ after the FedAvg")
+    require(any(not torch.equal(out[k], flat[k]) for k in flat),
+            "fl round: no parameter moved")
+    n_params = sum(v[0].numel() for v in flat.values())
+    print(f"fl round: {cfg.name} full width ({cfg.num_layers} layers, "
+          f"{n_params} params a cohort, {cfg.dtype}, remat) cohorts="
+          f"{FL_COHORTS} local_steps={FL_LOCAL_STEPS} micro-batch 1 x "
+          f"{FL_TOKENS} tokens: loss={loss!r} cold_s={secs[0]!r} "
+          f"warm_round_s={secs[1]!r} max_memory_allocated="
+          f"{torch.cuda.max_memory_allocated()} B; cohorts bit-identical "
+          f"after the FedAvg [{card}]", flush=True)
+    del flat, out, batch
+    torch.cuda.empty_cache()
+
+    cfg2 = cfg.replace(num_layers=FL_CPU_LAYERS, dtype="float32")
+    step2 = make_fl_round_step(cfg2, local_steps=FL_LOCAL_STEPS,
+                               n_cohorts=FL_COHORTS)
+    flat, batch = fl_cohorts(cfg2, cuda), fl_batch(cfg2, cuda, seed=1)
+    got, gloss = step2(MD.nested_params(flat), batch)
+    cpu = torch.device("cpu")
+    t = time.perf_counter()
+    want, wloss = step2(MD.nested_params({k: v.to(cpu)
+                                          for k, v in flat.items()}),
+                        {k: v.to(cpu) for k, v in batch.items()})
+    cpu_s = time.perf_counter() - t
+    got, want = MD.flatten_params(got), MD.flatten_params(want)
+    diff = max(float((got[k].to(cpu) - want[k]).abs().max()) for k in got)
+    print(f"fl round at {FL_CPU_LAYERS} layers, full width, float32: card "
+          f"vs CPU max |d params|={diff!r} (tol {FL_TOL}); loss "
+          f"{float(gloss)!r} vs {float(wloss)!r}; the CPU's round "
+          f"{cpu_s:.1f} s", flush=True)
+    require(diff <= FL_TOL, f"fl round: card and CPU differ by {diff}")
+    w = torch.tensor(FL_WEIGHTS)
+    agg_c = fl_aggregate(flat, w.to(cuda))
+    agg_p = fl_aggregate({k: v.to(cpu) for k, v in flat.items()}, w)
+    diff = max(float((agg_c[k].to(cpu) - agg_p[k]).abs().max())
+               for k in agg_c)
+    print(f"fl_aggregate weights {FL_WEIGHTS}: card vs CPU max |d|="
+          f"{diff!r} (tol {FL_AGG_TOL})", flush=True)
+    require(diff <= FL_AGG_TOL, f"fl_aggregate: card and CPU differ by "
+            f"{diff}")
+    del flat, batch, got, agg_c
+    torch.cuda.empty_cache()
+
+
+def start_dryruns():
+    """Start the dry run of each DRYRUN_COMBOS entry, each its own process
+    (fake tensors on cuda; the host's work only), writing its record under
+    DRYRUN_DIR.  Killed at exit if still running."""
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    DRYRUN_DIR.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    procs = []
+    for shape, multi_pod, fl in DRYRUN_COMBOS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               ARCH, "--shape", shape, "--results-dir", str(DRYRUN_DIR)]
+        cmd += ["--multi-pod"] if multi_pod else []
+        cmd += ["--fl-local-steps", str(fl)] if fl else []
+        name = f"{shape}__{'pod2' if multi_pod else 'pod1'}"
+        log = open(DRYRUN_DIR / f"{name}.log", "w")
+        procs.append((name, subprocess.Popen(
+            cmd, stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT),
+            log, time.perf_counter()))
+    atexit.register(lambda: [p.kill() for _, p, _, _ in procs
+                             if p.poll() is None])
+    return procs
+
+
+def dryrun_path(procs, card) -> None:
+    """Read the dry runs started by ``start_dryruns`` and hold each record
+    to the model; then the roofline over them."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch import specs as SP
+    from repro_torch.models import model as MD
+    from repro_torch.sharding import rules as R
+
+    cfg = get_config(ARCH)
+    flat = MD.flatten_params(SP.params_shape(cfg))
+    n_params = sum(v.numel() for v in flat.values())
+    axes = {"data": 16, "model": 16}
+    specs = R.sanitize_specs(R.param_specs(cfg, flat), flat, axes)
+    shard = sum(v.numel() // math.prod(R._n_shards(e, axes)
+                                       for e in specs[k])
+                for k, v in flat.items())
+    for name, proc, log, t in procs:
+        rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+        log.close()
+        text = (DRYRUN_DIR / f"{name}.log").read_text()
+        print(f"dry run {name}: exit {rc}, {time.perf_counter() - t:.1f} s "
+              f"after its start", flush=True)
+        require(rc == 0, f"dry run {name} exited {rc}: {text[-3000:]}")
+        rec = json.loads((DRYRUN_DIR / f"{ARCH}__{name}.json").read_text())
+        require(rec["status"] == "ok", f"dry run {name}: {rec}")
+        require(rec["n_params"] == n_params,
+                f"dry run {name}: n_params {rec['n_params']} != "
+                f"{n_params}")
+        coll = rec["collectives"]
+        if rec.get("fl_local_steps"):
+            require(coll["cross_pod"] == 4 * shard,
+                    f"dry run {name}: cross_pod {coll['cross_pod']} is not "
+                    f"the float32 FedAvg of the {shard}-element shard")
+        else:
+            require(coll["cross_pod"] == 0,
+                    f"dry run {name}: cross_pod {coll['cross_pod']} on one "
+                    "pod")
+        print(f"  {DR.headline(rec)}; cross_pod={coll['cross_pod']} B "
+              f"(the FedAvg's float32 all-reduce of a {shard}-element "
+              f"parameter shard: {4 * shard} B) [{card}]", flush=True)
+        print(f"  roofline: {RL.format_row(rec, RL.roofline_terms(rec))}",
+              flush=True)
+    for mesh in ("pod1", "pod2"):
+        RL.main(["--mesh", mesh, "--results-dir", str(DRYRUN_DIR)])
+
+
 def toolkit(BUILD, name: str) -> str:
     """A program of the CUDA toolkit whose nvcc builds the kernels."""
     tool = Path(BUILD._nvcc()).parent / name
@@ -3133,6 +3328,7 @@ def main() -> int:
                 f"instructions: {hmma}")
 
     cuda = torch.device("cuda")
+    dryruns = start_dryruns()       # host work only: read at the end
 
     # ---- kernel phases -------------------------------------------------
     phase("kernel phase: lloyd_step", t0)
@@ -3268,6 +3464,14 @@ def main() -> int:
     # ---- full-width train step -------------------------------------------
     phase("full-width train step", t0)
     train_step_path(cuda, card)
+
+    # ---- FL round step ---------------------------------------------------
+    phase("fl round step", t0)
+    fl_round_path(cuda, card)
+
+    # ---- dry run -----------------------------------------------------------
+    phase("dry run", t0)
+    dryrun_path(dryruns, card)
 
     if "--profile" in sys.argv[1:]:
         phase("profile", t0)

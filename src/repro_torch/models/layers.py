@@ -34,6 +34,15 @@ Types follow JAX's promotion: a float32 activation times bf16 weights is
 a float32 product (whisper's encoder over float32 frames runs in float32
 on a bf16 config), which :func:`matmul` does where torch would refuse
 the mixed product.
+
+The JAX package's ``maybe_constrain`` points are here too
+(``sharding.constrain``).  Outside the dry run's mesh they return their
+argument, and the helpers around them (``split_last``, ``merge_last``,
+``_logsumexp``, ``_softmax_minus_onehot``, :func:`matmul`) run the plain
+ops, so serving and training are unchanged.  Inside it, on DTensors,
+the attention runs on each (batch, head) shard's local tensors, the
+vocab-sharded loss reduces its max and sum instead of gathering the
+vocab, and products gather a sharded sequence first.
 """
 from __future__ import annotations
 
@@ -47,6 +56,10 @@ from repro_torch import rng
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as KOPS
 from repro_torch.kernels import ref as KREF
+from repro_torch.sharding.constrain import (current_mesh, gather_inner,
+                                           is_distributed, maybe_constrain,
+                                           merge_last, on_local_shards,
+                                           split_last)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -144,9 +157,47 @@ def init_mlp(key, d_model, d_ff, dtype, kind: str = "swiglu", *,
 
 
 def _gathered(w, cfg, *spec):
-    """FSDP weight-gather on use in the JAX package; FSDP is not ported,
-    so a weight is used as it is."""
-    return w
+    """FSDP weight-gather on use: re-constrain the weight so the 'data'
+    shard dim is gathered (weights are small; the alternative, computing
+    with a sharded contraction dim, all-reduces the much larger
+    activations).  Active only when cfg.fsdp_gather_weights, and then
+    only inside the dry run's mesh (``sharding.constrain``)."""
+    if cfg is None or not getattr(cfg, "fsdp_gather_weights", False):
+        return w
+    return maybe_constrain(w, *spec)
+
+
+class _MeshMatmul(torch.autograd.Function):
+    """x (..., D) @ w (D, F) on DTensors inside the dry run's mesh, with
+    the inner dims of x and of the output gradient gathered before each
+    product folds them (DTensor cannot flatten a sharded inner dim, the
+    sequence split over 'model' between blocks)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        x = gather_inner(x)
+        ctx.save_for_backward(x, w)
+        return x @ w
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = gather_inner(g)
+        gw = x.reshape(-1, x.shape[-1]).transpose(0, 1) \
+            @ g.reshape(-1, g.shape[-1])
+        return g @ w.transpose(-1, -2), gw
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """table[tokens]; inside the dry run's mesh through ``Fn.embedding``,
+    whose backward DTensor can place for a sharded table (the indexing
+    backward's ``index_put`` it cannot)."""
+    if is_distributed(table):
+        # reduce the vocab-sharded lookup's masked partial sums at once
+        out = Fn.embedding(tokens, table)
+        return maybe_constrain(out, ("pod", "data"),
+                               *(None,) * (out.ndim - 1))
+    return table[tokens]
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -155,6 +206,8 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dtype != w.dtype:
         dt = torch.result_type(x, w)
         x, w = x.to(dt), w.to(dt)
+    if x.ndim > 2 and is_distributed(x):
+        return _MeshMatmul.apply(x, w)
     return x @ w
 
 
@@ -201,9 +254,7 @@ def _qkv(p, x, cfg):
     q = _proj(x, _gathered(p["wq"], cfg, None, "model"), p.get("bq"))
     k = _proj(x, _gathered(p["wk"], cfg, None, "model"), p.get("bk"))
     v = _proj(x, _gathered(p["wv"], cfg, None, "model"), p.get("bv"))
-    B, S = x.shape[0], x.shape[1]
-    return (q.reshape(B, S, h, hd), k.reshape(B, S, kv, hd),
-            v.reshape(B, S, kv, hd))
+    return split_last(q, h, hd), split_last(k, kv, hd), split_last(v, kv, hd)
 
 
 def _expand_kv(k, num_heads):
@@ -276,9 +327,10 @@ def _flash_fwd(q, k, v, causal, window, bq, bk, q_offset):
     outs, lses = [], []
     for q0 in range(0, qp.shape[2], bq):
         qb = qp[:, :, q0:q0 + bq]
-        m = torch.full((B, H, bq), -1e30, device=dev)
-        l = torch.zeros((B, H, bq), device=dev)
-        acc = torch.zeros((B, H, bq, hd), device=dev)
+        # accumulators shaped (and, in the dry run's mesh, placed) as qb
+        m = torch.full_like(qb[..., 0], -1e30)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(qb)
         for k0 in range(0, kp.shape[2], bk):
             if not _block_sees(q0, bq, k0, bk, **geo):
                 continue
@@ -317,12 +369,12 @@ def _flash_bwd(q, k, v, out, lse, dout, causal, window, bq, bk, q_offset):
     dev = q.device
     geo = dict(causal=causal, window=window, sk=Sk, q_offset=q_offset)
     nq = qp.shape[2] // bq
-    dq = [torch.zeros((B, H, bq, hd), device=dev) for _ in range(nq)]
+    dq = [torch.zeros_like(qp[:, :, :bq]) for _ in range(nq)]
     dks, dvs = [], []
     for k0 in range(0, kp.shape[2], bk):
         kf, vf = kp[:, :, k0:k0 + bk], vp[:, :, k0:k0 + bk]
-        dkj = torch.zeros((B, H, bk, hd), device=dev)
-        dvj = torch.zeros((B, H, bk, hd), device=dev)
+        dkj = torch.zeros_like(kf)
+        dvj = torch.zeros_like(vf)
         for i in range(nq):
             q0 = i * bq
             if not _block_sees(q0, bq, k0, bk, **geo):
@@ -376,9 +428,22 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
     (B, S, H, hd) (kv pre-expanded to H heads).  Returns the same
     layout."""
     bq, bk = min(q_block, q.shape[1]), min(kv_block, k.shape[1])
-    out, _ = _FlashMHA.apply(q.transpose(1, 2), k.transpose(1, 2),
-                             v.transpose(1, 2), causal, window, bq, bk,
-                             q_offset)
+    # (B,S,H,hd) -> (B,H,S,hd), pin batch->data, heads->model
+    qt = maybe_constrain(q.transpose(1, 2), "data", "model", None, None)
+    kt = maybe_constrain(k.transpose(1, 2), "data", "model", None, None)
+    vt = maybe_constrain(v.transpose(1, 2), "data", "model", None, None)
+
+    def flash(qt, kt, vt):
+        return _FlashMHA.apply(qt, kt, vt, causal, window, bq, bk,
+                               q_offset)[0]
+
+    if is_distributed(qt):
+        # each (batch, head) shard attends alone: the block loop runs on
+        # the local shards
+        out = on_local_shards(flash, qt.placements, qt, kt, vt)
+    else:
+        out = flash(qt, kt, vt)
+    out = maybe_constrain(out, "data", "model", None, None)
     return out.transpose(1, 2)
 
 
@@ -408,8 +473,7 @@ def attention_train(p, x, cfg, *, causal: bool = True,
         o = KOPS.flash_attention(q, k, v, causal=causal, window=win)
     else:
         o = chunked_attention(q, k, v, causal=causal, window=win)
-    o = o.reshape(B, S, h * hd)
-    return matmul(o, _gathered(p["wo"], cfg, "model", None))
+    return matmul(merge_last(o), _gathered(p["wo"], cfg, "model", None))
 
 
 # ---------------- decode (single new token against a KV cache) -----------
@@ -476,10 +540,10 @@ def attention_decode(p, x, cache, pos, cfg, *, cross: bool = False,
     B = x.shape[0]
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     pos = int(pos)
-    q = _proj(x, p["wq"], p.get("bq")).reshape(B, 1, h, hd)
+    q = split_last(_proj(x, p["wq"], p.get("bq")), h, hd)
     if not cross:
-        k_new = _proj(x, p["wk"], p.get("bk")).reshape(B, 1, kv, hd)
-        v_new = _proj(x, p["wv"], p.get("bv")).reshape(B, 1, kv, hd)
+        k_new = split_last(_proj(x, p["wk"], p.get("bk")), kv, hd)
+        v_new = split_last(_proj(x, p["wv"], p.get("bv")), kv, hd)
         if cfg.rope_theta > 0:
             posv = torch.full((B, 1), pos, device=x.device)
             q = apply_rope(q, posv, cfg.rope_theta)
@@ -501,12 +565,22 @@ def attention_decode(p, x, cache, pos, cfg, *, cross: bool = False,
         valid = slot_idx <= pos
     kc = _expand_kv(kc, h)                              # (B, eff, H, hd)
     vc = _expand_kv(vc, h)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kc.float()) / math.sqrt(hd)
-    s = torch.where(valid, s, torch.full_like(s, -1e30))
-    w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhqk,bkhd->bqhd", w, vc.float())
-    o = o.to(x.dtype).reshape(B, 1, h * hd)
-    return matmul(o, p["wo"]), cache
+
+    def attend(q, kc, vc):
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                         kc.float()) / math.sqrt(hd)
+        s = torch.where(valid, s, torch.full_like(s, -1e30))
+        w = torch.softmax(s, dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", w, vc.float())
+
+    if is_distributed(q):
+        # batch over 'data', heads over 'model'; each shard attends alone
+        q, kc, vc = (maybe_constrain(t, "data", None, "model", None)
+                     for t in (q, kc, vc))
+        o = on_local_shards(attend, q.placements, q, kc, vc)
+    else:
+        o = attend(q, kc, vc)
+    return matmul(merge_last(o.to(x.dtype)), p["wo"]), cache
 
 
 # ----------------------------------------------------------------------
@@ -526,6 +600,30 @@ def _xent_chunks(x, labels, mask, chunk):
                mask[:, s0:s0 + chunk])
 
 
+def _logsumexp(logits):
+    """logsumexp over the vocab.  Inside the dry run's mesh in the form
+    whose two reductions (max, sum) leave a vocab-sharded DTensor sharded:
+    ``torch.logsumexp`` would gather the vocab first."""
+    if current_mesh() is None:
+        return torch.logsumexp(logits, dim=-1)
+    m = logits.amax(-1, keepdim=True)
+    return (m + torch.log(torch.exp(logits - m).sum(-1, keepdim=True)))[..., 0]
+
+
+def _softmax_minus_onehot(logits, idx):
+    """softmax(logits) - onehot(idx) over the vocab (idx: (..., 1)); inside
+    the mesh from the sharded logsumexp and a vocab iota sharded as the
+    logits, so nothing is gathered."""
+    if current_mesh() is None:
+        return torch.softmax(logits, dim=-1) - torch.zeros_like(
+            logits).scatter(-1, idx, 1.0)
+    p = torch.exp(logits - _logsumexp(logits)[..., None])
+    iota = torch.arange(logits.shape[-1], device=idx.device)
+    iota = maybe_constrain(iota.reshape((1,) * (idx.ndim - 1) + (-1,)),
+                           *(None,) * (idx.ndim - 1), "model")
+    return p - (iota == idx).to(p.dtype)
+
+
 class _ChunkedXent(torch.autograd.Function):
     """Masked mean next-token NLL over (x_final @ w_head) chunk by chunk.
     The forward sums each chunk's NLL in chunk order, as the JAX
@@ -542,9 +640,13 @@ class _ChunkedXent(torch.autograd.Function):
         tot = torch.zeros((), device=x.device)
         cnt = torch.zeros((), device=x.device)
         for xc, lc, mc in _xent_chunks(x, labels, mask, chunk):
-            logits = (xc @ w).float()                        # (B, c, V)
-            lse = torch.logsumexp(logits, dim=-1)
-            gold = logits.gather(-1, lc[..., None].long())[..., 0]
+            logits = maybe_constrain((xc @ w).float(),       # (B, c, V)
+                                     "data", None, "model")
+            lse = _logsumexp(logits)
+            # the vocab-sharded gather is a masked partial in the dry
+            # run's mesh: reduce it before dropping the index dim
+            gold = maybe_constrain(logits.gather(-1, lc[..., None].long()),
+                                   "data")[..., 0]
             tot = tot + ((lse - gold) * mc).sum()
             cnt = cnt + mc.sum()
         return tot / torch.clamp(cnt, min=1.0)
@@ -559,12 +661,11 @@ class _ChunkedXent(torch.autograd.Function):
     def backward(ctx, g):
         x, w, labels, mask = ctx.saved_tensors
         scale = g / torch.clamp(mask.float().sum(), min=1.0)
-        dxs, dw = [], torch.zeros(w.shape, device=w.device)
+        dxs, dw = [], torch.zeros_like(w, dtype=torch.float32,
+                                       memory_format=torch.contiguous_format)
         for xc, lc, mc in _xent_chunks(x, labels, mask, ctx.chunk):
-            logits = (xc @ w).float()
-            idx = lc[..., None].long()
-            dl = torch.softmax(logits, dim=-1) - torch.zeros_like(
-                logits).scatter(-1, idx, 1.0)
+            logits = maybe_constrain((xc @ w).float(), "data", None, "model")
+            dl = _softmax_minus_onehot(logits, lc[..., None].long())
             dl = (dl * (mc * scale)[..., None]).to(x.dtype)
             dxs.append(dl @ w.transpose(-1, -2))
             dw = dw + (xc.transpose(-1, -2) @ dl).float()
@@ -578,5 +679,10 @@ def chunked_softmax_xent(logits_fn, x_final, w_head, labels, mask,
     so the (B, S, V) logits are never held (``logits_fn`` is unused, as
     in the JAX package).  x_final: (B, S, D) final hidden states; w_head:
     (D, V); labels, mask: (B, S)."""
+    x_final = maybe_constrain(x_final, "data", None, None)
+    # GSPMD derives the head's gather over 'data' from the logits
+    # constraint; DTensor plans one op at a time, so it is asked for (one
+    # all-gather of D x V/16 a step, not the logits reduced per chunk)
+    w_head = maybe_constrain(w_head, None, "model")
     return _ChunkedXent.apply(x_final, w_head, labels, mask,
                               min(chunk, x_final.shape[1]))

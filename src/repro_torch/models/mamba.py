@@ -25,7 +25,8 @@ import torch
 import torch.nn.functional as Fn
 
 from repro_torch import rng, xla_math
-from repro_torch.models.layers import dense_init, torch_dtype
+from repro_torch.models.layers import dense_init, matmul, torch_dtype
+from repro_torch.sharding.constrain import maybe_constrain
 
 
 def init_mamba(key, cfg, *, device="cuda") -> Dict[str, torch.Tensor]:
@@ -63,9 +64,12 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 def _ssm_params(p, x, cfg):
     """x: (..., di) conv+silu output -> (dt, B, C) selective params."""
     dr, ds = cfg.dt_rank, cfg.mamba_d_state
-    dbc = x @ p["w_x_dbc"]
+    # the contraction over d_inner ('model') reduced once, before the
+    # slices (DTensor slices no partial sum)
+    dbc = matmul(x, p["w_x_dbc"])
+    dbc = maybe_constrain(dbc, "data", *(None,) * (dbc.ndim - 1))
     dt_r, b, c = dbc[..., :dr], dbc[..., dr:dr + ds], dbc[..., dr + ds:]
-    dt = softplus(dt_r.float() @ p["w_dt"].float() + p["b_dt"])
+    dt = softplus(matmul(dt_r.float(), p["w_dt"].float()) + p["b_dt"])
     return dt, b.float(), c.float()
 
 
@@ -83,7 +87,9 @@ def _conv_taps(xp, w, b, s):
 
 def _causal_conv(x, w, b):
     """x: (B, S, di); depthwise causal conv along S with kernel (dc, di)."""
-    xp = Fn.pad(x, (0, 0, w.shape[0] - 1, 0))
+    # zeros before the sequence (a cat: DTensor pads no dim)
+    xp = torch.cat([torch.zeros_like(x[:, :1]).expand(
+        -1, w.shape[0] - 1, -1), x], dim=1)
     return _conv_taps(xp, w, b, x.shape[1])
 
 
@@ -122,8 +128,9 @@ def apply_mamba(p, x, cfg, *, chunk: int = 256):
     """Full-sequence mamba mixer. x: (B, S, D) -> (B, S, D)."""
     B, S, D = x.shape
     di, ds = cfg.mamba_d_inner, cfg.mamba_d_state
-    xz = x @ p["w_in"]
+    xz = matmul(x, p["w_in"])
     xi, z = xz[..., :di], xz[..., di:]                    # (B,S,di)
+    xi = maybe_constrain(xi, "data", None, "model")
     xi = Fn.silu(_causal_conv(xi, p["conv_w"], p["conv_b"]))
     dt, bmat, cmat = _ssm_params(p, xi, cfg)
     a = -torch.exp(p["a_log"])                            # (di, ds)
@@ -131,15 +138,17 @@ def apply_mamba(p, x, cfg, *, chunk: int = 256):
     # discretize: da[t] = exp(dt[t] * A); dbx[t] = dt * B[t] * x[t]
     chunk = min(chunk, S)
     pad = (-S) % chunk
-    xf = Fn.pad(xi.float(), (0, 0, 0, pad))
-    dt_, b_, c_ = (Fn.pad(t, (0, 0, 0, pad)) for t in (dt, bmat, cmat))
+    xf, dt_, b_, c_ = (Fn.pad(t, (0, 0, 0, pad)) if pad else t
+                       for t in (xi.float(), dt, bmat, cmat))
     h = torch.zeros((B, di, ds), dtype=torch.float32, device=x.device)
     ys = []
     for s0 in range(0, S + pad, chunk):
         xc, dtc = xf[:, s0:s0 + chunk], dt_[:, s0:s0 + chunk]
         bc, cc = b_[:, s0:s0 + chunk], c_[:, s0:s0 + chunk]
         da = torch.exp(dtc[..., None] * a)                # (B,chunk,di,ds)
+        da = maybe_constrain(da, "data", None, "model", None)
         dbx = (dtc * xc)[..., None] * bc[..., None, :]
+        dbx = maybe_constrain(dbx, "data", None, "model", None)
         # the carry prepended as the first element
         da0 = torch.cat([torch.ones_like(da[:, :1]), da], dim=1)
         dbx0 = torch.cat([h[:, None], dbx], dim=1)
@@ -150,7 +159,7 @@ def apply_mamba(p, x, cfg, *, chunk: int = 256):
     y = torch.cat(ys, dim=1)[:, :S]
     y = y + xi.float() * p["d_skip"]
     y = (y * Fn.silu(z.float())).to(x.dtype)
-    return y @ p["w_out"]
+    return matmul(y, p["w_out"])
 
 
 # ---------------------------- decode ----------------------------------

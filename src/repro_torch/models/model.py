@@ -19,6 +19,12 @@ cross cache (:func:`build_cross_cache`).  A multimodal prefix (the VLM)
 takes the place of the first token embeddings in :func:`forward`;
 decoding never reads it, as in the JAX package.
 
+The JAX package's sharding constraints sit at its sites: the residual
+stream entering each group is batch- and sequence-sharded, and under
+save_block_out each saved sublayer output; they act only inside the dry
+run's mesh (``sharding.constrain.use_mesh``) and return their argument
+elsewhere.
+
 With ``cfg.remat`` each block runs under ``torch.utils.checkpoint``
 (non-reentrant), so the backward holds one block's activations at a
 time: policy ``nothing`` recomputes the whole block, ``save_block_out``
@@ -59,6 +65,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
 from repro_torch.models import xlstm as X
+from repro_torch.sharding.constrain import maybe_constrain, split_last
 
 
 # ----------------------------------------------------------------------
@@ -215,18 +222,28 @@ def _cross(bp, x, cfg: ModelConfig, enc_out):
     h = L.apply_norm(bp["ln_cross"], x, cfg.norm_eps)
     c = bp["cross"]
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    Bc, Sc = enc_out.shape[0], enc_out.shape[1]
-    k = L._proj(enc_out, c["wk"], c.get("bk")).reshape(Bc, Sc, kv, hd)
-    v = L._proj(enc_out, c["wv"], c.get("bv")).reshape(Bc, Sc, kv, hd)
+    k = split_last(L._proj(enc_out, c["wk"], c.get("bk")), kv, hd)
+    v = split_last(L._proj(enc_out, c["wv"], c.get("bv")), kv, hd)
     return x + L.attention_train(c, h, cfg, causal=False,
                                  kv_override=(k, v))
+
+
+def _block_out(cfg: ModelConfig, t):
+    """A sublayer output that the save_block_out remat policy keeps: in
+    the dry run's mesh it is saved seq-sharded, so the checkpoint costs
+    B x S/16 x D a block."""
+    if cfg.remat_policy != "save_block_out":
+        return t
+    return maybe_constrain(t, ("pod", "data"),
+                           "model" if t.shape[1] % 16 == 0 else None, None)
 
 
 def _mixer_half(bp, x, cfg: ModelConfig, spec, causal: bool, enc_out=None):
     """x + the mixer, then + the cross-attention sublayer where the block
     has one and an encoder output is given."""
     h = L.apply_norm(bp["ln1"], x, cfg.norm_eps)
-    x = x + MIXERS[spec.mixer].apply(bp["mixer"], h, cfg, causal)
+    x = x + _block_out(cfg, MIXERS[spec.mixer].apply(bp["mixer"], h, cfg,
+                                                     causal))
     if "cross" in bp and enc_out is not None:
         x = _cross(bp, x, cfg, enc_out)
     return x
@@ -237,8 +254,8 @@ def _ffn_half(bp, x, cfg: ModelConfig, spec):
     h = L.apply_norm(bp["ln2"], x, cfg.norm_eps)
     if spec.ffn == "moe":
         y, aux = MOE.apply_moe(bp["ffn"], h, cfg)
-        return x + y, aux["moe_aux_loss"]
-    return x + L.apply_mlp(bp["ffn"], h, cfg), 0.0
+        return x + _block_out(cfg, y), aux["moe_aux_loss"]
+    return x + _block_out(cfg, L.apply_mlp(bp["ffn"], h, cfg)), 0.0
 
 
 def _apply_block(bp, x, cfg: ModelConfig, spec, *, causal: bool,
@@ -266,8 +283,14 @@ def _run_stack(blocks, x, cfg: ModelConfig, cycle, num_groups: int, *,
                 "torch.func); use cfg.replace(remat=False)")
         if cfg.remat_policy not in ("nothing", "save_block_out"):
             raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+    # sequence-parallel activation carries (Megatron-SP analogue): in the
+    # dry run's mesh the residual stream entering each group is sharded
+    # (batch -> data, seq -> model); blocks re-gather the sequence inside
+    seq_ok = x.shape[1] % 16 == 0
     aux_sum = 0.0
     for g in range(num_groups):
+        x = maybe_constrain(x, ("pod", "data"), "model" if seq_ok else None,
+                            None)
         for pos, spec in enumerate(cycle):
             bp = _group(blocks[pos], g)
             if not cfg.remat:
@@ -308,7 +331,7 @@ def forward(cfg: ModelConfig, params, tokens, *,
     multimodal prefix); an encoder-decoder config needs
     ``encoder_frames`` (B, Se, D) and fails without them with the JAX
     package's ``AssertionError``."""
-    x = params["tok_embed"][tokens]
+    x = L.embed(params["tok_embed"], tokens)
     if prefix_embeddings is not None:
         P = prefix_embeddings.shape[1]
         x = torch.cat([prefix_embeddings.to(x.dtype), x[:, P:]], dim=1)
@@ -374,11 +397,14 @@ def flatten_params(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
 def value_and_grad(loss, flat: Dict[str, torch.Tensor], batch
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss(flat, batch) detached, d loss / d flat as a dict with the
-    flat view's keys), through ``torch.autograd``."""
+    flat view's keys), through ``torch.autograd``.  A leaf the loss does
+    not use gets zeros, as ``jax.grad`` gives it (the cross-attention of
+    whisper's encoder blocks)."""
     names = sorted(flat)
     leaves = [flat[k].detach().requires_grad_(True) for k in names]
     value = loss(dict(zip(names, leaves)), batch)
-    grads = torch.autograd.grad(value, leaves)
+    grads = torch.autograd.grad(value, leaves, allow_unused=True,
+                                materialize_grads=True)
     return value.detach(), dict(zip(names, grads))
 
 

@@ -3,8 +3,12 @@
 Capacity-factor routing with a scatter dispatch, as the JAX package's
 group-local dispatch at one group: the JAX package splits the tokens
 into G groups, one per shard of its ``data`` mesh axis, and has G = 1
-without a mesh.  The port has no mesh, so G = 1 here and the
-``maybe_constrain`` sharding hints are dropped.
+without a mesh.  The port keeps G = 1 in the dry run's mesh too (its
+capacity is then the whole batch's, where JAX's is a group's), and
+places the JAX package's ``maybe_constrain`` hints on the ungrouped
+tensors (tokens over ``data``, D over ``model`` around the scatter and
+the gather, experts over ``model`` in the expert FFN); outside a mesh
+they return their argument.
 
   1. the router (float32) gives each token its top-k experts; a tie goes
      to the lower expert index, as ``lax.top_k`` orders it;
@@ -35,6 +39,7 @@ import torch.nn.functional as Fn
 
 from repro_torch import rng
 from repro_torch.models.layers import dense_init, torch_dtype
+from repro_torch.sharding.constrain import fold, maybe_constrain
 
 
 def init_moe(key, cfg, *, device="cuda") -> Dict[str, torch.Tensor]:
@@ -108,6 +113,13 @@ def apply_moe(p, x: torch.Tensor, cfg, *, capacity: int = None):
     return out, {"moe_aux_loss": aux_loss, "moe_drop_frac": drop}
 
 
+def _g(cfg, w):
+    """FSDP gather of an expert weight on use (cfg.fsdp_gather_weights)."""
+    if getattr(cfg, "fsdp_gather_weights", False):
+        return maybe_constrain(w, "model", None, None)
+    return w
+
+
 def moe_forward(p, x: torch.Tensor, cfg, *, capacity: int = None):
     """The layer without its auxiliary losses, which a decode step drops
     (XLA removes them from the reference's decode as dead code): x (B, S,
@@ -119,23 +131,28 @@ def moe_forward(p, x: torch.Tensor, cfg, *, capacity: int = None):
     C = capacity if capacity is not None else moe_capacity(T, cfg)
     C = min(C, T * K)
 
-    xt = x.reshape(T, D)
+    xt = maybe_constrain(fold(x, T, D), "data", None)
     probs = router_probs(p, xt)
     gates, idx, keep, slot, counts = route(probs, cfg, C)
 
     # --- dispatch: scatter into (E*C+1, D), the last row the drop bucket
     xrep = xt[:, None].expand(T, K, D).reshape(T * K, D)       # token-major
+    xrep = maybe_constrain(xrep, "data", "model")
     buf = xt.new_zeros((E * C + 1, D)).index_put((slot,), xrep)
-    h = buf[:E * C].reshape(E, C, D)
+    buf = maybe_constrain(buf, None, "model")
+    h = maybe_constrain(buf[:E * C].reshape(E, C, D), "model", None, None)
 
     # --- expert FFN as batched matmuls over the experts ---
-    g = Fn.silu(torch.bmm(h, p["w_gate"]))
-    u = torch.bmm(h, p["w_up"])
-    y = torch.bmm(g * u, p["w_down"]).reshape(E * C, D)
+    g = Fn.silu(torch.bmm(h, _g(cfg, p["w_gate"])))
+    u = torch.bmm(h, _g(cfg, p["w_up"]))
+    y = torch.bmm(g * u, _g(cfg, p["w_down"]))
+    y = maybe_constrain(y, "model", None, None).reshape(E * C, D)
+    y = maybe_constrain(y, None, "model")
 
     # --- gather back and combine with the gates ---
     y = torch.cat([y, y.new_zeros((1, D))], dim=0)
     out = y[slot]                                              # (T*K, D)
     w = gates.reshape(T * K, 1).to(y.dtype) * keep[:, None].to(y.dtype)
     out = (out * w).reshape(T, K, D).sum(dim=1)
-    return out.reshape(B, S, D).to(x.dtype), probs, keep, counts
+    out = maybe_constrain(out, "data", "model")
+    return fold(out, B, S, D).to(x.dtype), probs, keep, counts

@@ -19,8 +19,10 @@ import torch
 import torch.nn.functional as Fn
 
 from repro_torch import rng
-from repro_torch.models.layers import dense_init, torch_dtype
+from repro_torch.models.layers import dense_init, matmul, torch_dtype
 from repro_torch.models.mamba import softplus
+from repro_torch.sharding.constrain import (maybe_constrain, merge_last,
+                                           split_last)
 
 NEG = -1e30                  # the reference's "minus infinity"
 
@@ -54,15 +56,14 @@ def init_mlstm(key, cfg, *, device="cuda") -> Dict[str, torch.Tensor]:
 
 
 def _mlstm_qkv(p, x, h):
-    B, S, d = x.shape
-    dh = d // h
+    dh = x.shape[-1] // h
 
     def heads(t):
-        return t.reshape(B, S, h, dh).transpose(1, 2)    # (B,h,S,dh)
+        return split_last(t, h, dh).transpose(1, 2)      # (B,h,S,dh)
 
-    q, k, v = heads(x @ p["wq"]), heads(x @ p["wk"]), heads(x @ p["wv"])
-    li = (x.float() @ p["wi"] + p["bi"]).transpose(1, 2)          # (B,h,S)
-    lf = log_sigmoid(x.float() @ p["wf"] + p["bf"]).transpose(1, 2)
+    q, k, v = (heads(matmul(x, p[w])) for w in ("wq", "wk", "wv"))
+    li = (matmul(x.float(), p["wi"]) + p["bi"]).transpose(1, 2)   # (B,h,S)
+    lf = log_sigmoid(matmul(x.float(), p["wf"]) + p["bf"]).transpose(1, 2)
     return q, k, v, li, lf
 
 
@@ -72,13 +73,19 @@ def apply_mlstm(p, x, cfg, *, chunk: int = 256):
     h = cfg.xlstm_num_heads
     dh = d // h
     q, k, v, li, lf = _mlstm_qkv(p, x, h)          # q: (B,h,S,dh)
+    # xLSTM has few, wide heads (4 x 512): sharding heads over the 16-way
+    # model axis pads 4 -> 16 (4x waste + permute churn); shard head_dim
+    q = maybe_constrain(q, "data", None, None, "model")
+    k = maybe_constrain(k, "data", None, None, "model")
+    v = maybe_constrain(v, "data", None, None, "model")
     scale = 1.0 / math.sqrt(dh)
 
     chunk = min(chunk, S)
     pad = (-S) % chunk
-    q, k, v = (Fn.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
-    li = Fn.pad(li, (0, pad), value=NEG)           # padded i-gate: no write
-    lf = Fn.pad(lf, (0, pad))
+    if pad:
+        q, k, v = (Fn.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
+        li = Fn.pad(li, (0, pad), value=NEG)       # padded i-gate: no write
+        lf = Fn.pad(lf, (0, pad))
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=x.device))
 
@@ -118,9 +125,9 @@ def apply_mlstm(p, x, cfg, *, chunk: int = 256):
         n = n * carry[..., None] + torch.einsum("bhs,bhsd->bhd", wstate, kf)
         m = m_new
     out = torch.cat(outs, dim=2)[:, :, :S]
-    out = out.transpose(1, 2).reshape(B, S, d).to(x.dtype)
-    out = out * Fn.silu(x @ p["wz"])
-    return out @ p["wo"]
+    out = merge_last(out.transpose(1, 2)).to(x.dtype)
+    out = out * Fn.silu(matmul(x, p["wz"]))
+    return matmul(out, p["wo"])
 
 
 def init_mlstm_cache(cfg, batch, layers_leading=(), *, device="cuda"):
@@ -136,9 +143,8 @@ def init_mlstm_cache(cfg, batch, layers_leading=(), *, device="cuda"):
 
 def decode_mlstm(p, x, cache, cfg):
     """One-token mLSTM step. x: (B, 1, D) -> (out, new_cache)."""
-    B, _, d = x.shape
     h = cfg.xlstm_num_heads
-    dh = d // h
+    dh = x.shape[-1] // h
     q, k, v, li, lf = _mlstm_qkv(p, x, h)          # (B,h,1,dh), (B,h,1)
     q, k, v = q[:, :, 0], k[:, :, 0], v[:, :, 0]
     li, lf = li[..., 0], lf[..., 0]                # (B,h)
@@ -154,9 +160,9 @@ def decode_mlstm(p, x, cache, cfg):
     num = torch.einsum("bhd,bhdv->bhv", qf, C_new)
     den = torch.einsum("bhd,bhd->bh", qf, n_new).abs()
     out = num / torch.maximum(den, torch.exp(-m_new))[..., None]
-    out = out.reshape(B, 1, d).to(x.dtype)
-    out = out * Fn.silu(x @ p["wz"])
-    return out @ p["wo"], {"C": C_new, "n": n_new, "m": m_new}
+    out = merge_last(out)[:, None].to(x.dtype)
+    out = out * Fn.silu(matmul(x, p["wz"]))
+    return matmul(out, p["wo"]), {"C": C_new, "n": n_new, "m": m_new}
 
 
 # ----------------------------------------------------------------------
@@ -205,10 +211,9 @@ def _slstm_cell(p, xg, state):
 
 def _slstm_pre(p, x, h):
     """Input pre-activations for all gates: (B, S, H, dh) each."""
-    B, S, d = x.shape
-    dh = d // h
-    return {g: (x.float() @ p[f"w{g}"].float() + p[f"b{g}"]).reshape(
-        B, S, h, dh) for g in GATES}
+    dh = x.shape[-1] // h
+    return {g: split_last(matmul(x.float(), p[f"w{g}"].float())
+                          + p[f"b{g}"], h, dh) for g in GATES}
 
 
 def apply_slstm(p, x, cfg):
@@ -222,8 +227,8 @@ def apply_slstm(p, x, cfg):
     for t in range(S):
         state, ht = _slstm_cell(p, {g: pre[g][:, t] for g in GATES}, state)
         hs.append(ht)
-    out = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
-    return out @ p["wo_proj"]
+    out = merge_last(torch.stack(hs, dim=1)).to(x.dtype)
+    return matmul(out, p["wo_proj"])
 
 
 def init_slstm_cache(cfg, batch, layers_leading=(), *, device="cuda"):
@@ -235,10 +240,9 @@ def init_slstm_cache(cfg, batch, layers_leading=(), *, device="cuda"):
 
 def decode_slstm(p, x, cache, cfg):
     """One-token sLSTM step. x: (B, 1, D) -> (out, new_cache)."""
-    B, _, d = x.shape
     pre = _slstm_pre(p, x, cfg.xlstm_num_heads)
     state = (cache["c"], cache["n"], cache["h"], cache["m"])
     (c, n, hh, m), hnew = _slstm_cell(p, {g: pre[g][:, 0] for g in GATES},
                                       state)
-    out = hnew.reshape(B, 1, d).to(x.dtype) @ p["wo_proj"]
+    out = matmul(merge_last(hnew)[:, None].to(x.dtype), p["wo_proj"])
     return out, {"c": c, "n": n, "h": hh, "m": m}

@@ -321,6 +321,8 @@ def _from_bits(k1: int, k2: int, n: int, device, values, table_key
     """``values(bits)`` over the n flat counters of key (k1, k2), read
     from the table of ``values`` over every mantissa (cached under
     ``table_key``) when n >= _TABLE_MIN."""
+    if device.type == "meta":   # shapes without values (launch.specs)
+        return torch.empty((n,), dtype=torch.float32, device=device)
     if n < _TABLE_MIN:
         return _by_pieces(n, device, lambda s, e: values(
             _bits_flat(k1, k2, s, e, device)))

@@ -1,0 +1,175 @@
+"""The port's dry run (``launch/dryrun.py``) on small fake meshes: qwen2-0.5b's
+smoke config through the train step on a 2 x 2 (data, model) mesh and
+through the FL round on a 2 x 2 x 2 (pod, data, model) mesh.  Each runs
+in a subprocess of its own, side by side, so the fake process group
+never meets another test.
+The records are held to the JAX package: their keys, ``n_params`` and
+``model_flops`` from its parameter counts, the argument bytes from its
+sanitized specs, no cross-pod bytes without 'pod', and with the FL round
+exactly the FedAvg's all-reduce of the device's parameter shard in
+float32.  The port's forward on plain tensors, with the constraint
+points in place, is held to JAX's at test_torch_transformer.py's bound.
+Importing the dry run starts no process group and loads no JAX."""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+from jax.sharding import PartitionSpec as P
+
+from repro.configs import registry as JREG
+from repro.launch import roofline as JRL
+from repro.launch import specs as JSP
+from repro.models import model as JMD
+from repro.sharding import rules as JR
+from repro_torch import interop
+from repro_torch.configs import registry as TREG
+from repro_torch.models import model as TMD
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+ARCH = "qwen2-0.5b"
+B, S = 4, 32
+
+RUN = f"""
+import json, sys, torch
+torch.set_num_threads(1)
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.configs.registry import get_smoke_config
+from repro_torch.launch import dryrun as DR
+from repro_torch.launch.mesh import fake_mesh
+import torch.distributed as dist
+cfg = get_smoke_config("{ARCH}").replace(remat=False)
+shape = ShapeConfig("small", {S}, {B}, "train")
+if sys.argv[1] == "pod1":
+    m = fake_mesh((2, 2), ("data", "model"), "cpu")
+    rec = DR.dryrun_one("{ARCH}", "small", False, device="cpu", mesh=m,
+                        cfg=cfg, shape=shape)
+    rec["headline"] = DR.headline(rec)
+else:
+    m = fake_mesh((2, 2, 2), ("pod", "data", "model"), "cpu")
+    assert dist.get_world_size() == 8
+    rec = DR.dryrun_one("{ARCH}", "small", True, device="cpu", mesh=m,
+                        cfg=cfg, shape=shape, fl_local_steps=2)
+dist.destroy_process_group()
+print("RECORD " + json.dumps(rec))
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src"), env.get("PYTHONPATH", "")]).rstrip(os.pathsep)
+    env.pop("JAX_PLATFORMS", None)
+    return env
+
+
+@pytest.fixture(scope="module")
+def records():
+    """The one-pod train step and the two-pod FL round, each in a
+    process of its own (run side by side)."""
+    procs = {k: subprocess.Popen([sys.executable, "-c", RUN, k],
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True,
+                                 env=_env())
+             for k in ("pod1", "fl")}
+    out = {}
+    for k, p in procs.items():
+        stdout, stderr = p.communicate(timeout=600)
+        assert p.returncode == 0, stdout[-3000:] + stderr[-3000:]
+        line = next(l for l in stdout.splitlines()
+                    if l.startswith("RECORD "))
+        out[k] = json.loads(line[len("RECORD "):])
+    out["headline"] = out["pod1"].pop("headline")
+    return out
+
+
+def _jax_local_bytes(axes, multi_pod=False):
+    """Bytes of one device's parameter shards (by JAX's sanitized specs)
+    and of its batch shards."""
+    cfg = JREG.get_smoke_config(ARCH)
+    pshape = JSP.params_shape(cfg)
+    specs = JR.sanitize_specs(JR.param_specs(cfg, pshape), pshape, axes)
+    leaves = jax.tree_util.tree_leaves(pshape)
+    sleaves = jax.tree_util.tree_leaves(specs,
+                                        is_leaf=lambda x: isinstance(x, P))
+    n_local = []
+    for leaf, spec in zip(leaves, sleaves):
+        n = int(np.prod(leaf.shape))
+        for e in spec:
+            n //= JR._n_shards(e, axes)
+        n_local.append((n, leaf.dtype.itemsize))
+    batch = 3 * (B // JR._n_shards(JR.batch_axis(multi_pod), axes)) * S * 4
+    return n_local, batch
+
+
+KEYS = {"arch", "shape", "mesh", "kind", "kv_dtype", "fsdp_gather", "status",
+        "device", "n_devices", "lower_s", "memory", "cost", "collectives",
+        "model_flops", "n_params"}
+
+
+def test_record_keys(records):
+    rec = records["pod1"]
+    assert set(rec) == KEYS
+    assert set(records["fl"]) == KEYS | {"fl_local_steps"}
+    assert rec["status"] == "ok" and rec["n_devices"] == 4
+    assert records["fl"]["n_devices"] == 8
+    assert set(rec["memory"]) == {"argument_size_in_bytes",
+                                  "output_size_in_bytes",
+                                  "temp_size_in_bytes"}
+    assert set(rec["collectives"]) == {
+        "all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+        "collective-permute", "count", "total", "cross_pod"}
+    assert rec["collectives"]["count"] > 0
+    assert rec["collectives"]["total"] == sum(
+        rec["collectives"][k] for k in ("all-gather", "all-reduce",
+                                        "reduce-scatter", "all-to-all",
+                                        "collective-permute"))
+    assert rec["cost"]["flops"] > 0 and rec["memory"]["temp_size_in_bytes"] > 0
+    assert "fake run ok" in records["headline"]
+
+
+def test_params_and_model_flops_match_jax(records):
+    total, active, embed = JRL._param_counts(JREG.get_smoke_config(ARCH))
+    for rec in records.values():
+        if isinstance(rec, dict):
+            assert rec["n_params"] == total
+            assert rec["model_flops"] == 6.0 * (active + embed) * B * S
+
+
+def test_argument_bytes_match_jax_specs(records):
+    n_local, batch = _jax_local_bytes({"data": 2, "model": 2})
+    params = sum(n * size for n, size in n_local)
+    mem = records["pod1"]["memory"]
+    assert mem["argument_size_in_bytes"] == params + batch
+    assert mem["output_size_in_bytes"] >= params
+
+
+def test_cross_pod_bytes(records):
+    assert records["pod1"]["collectives"]["cross_pod"] == 0
+    # the FedAvg: one float32 all-reduce of the device's parameter shard
+    # (the cohort dim is split over 'pod', the rest as on one pod)
+    n_local, _ = _jax_local_bytes({"data": 2, "model": 2})
+    fl = records["fl"]["collectives"]
+    assert fl["cross_pod"] == 4 * sum(n for n, _ in n_local)
+    assert fl["all-reduce"] >= fl["cross_pod"]
+
+
+def test_forward_with_constraint_points_matches_jax():
+    """Plain tensors (no mesh): the model with its constraint points in
+    place gives JAX's logits at test_torch_transformer.py's bound."""
+    cfg_j = JREG.get_smoke_config(ARCH).replace(dtype="float32")
+    cfg_t = TREG.get_smoke_config(ARCH).replace(dtype="float32")
+    params = JMD.init_params(cfg_j, jax.random.PRNGKey(0))
+    tokens = np.random.default_rng(5).integers(0, cfg_j.vocab_size, (2, 40))
+    want = np.asarray(JMD.logits_fn(cfg_j, params, jax.numpy.asarray(tokens)))
+    tp = interop.model_params_from_numpy(jax.tree.map(np.asarray, params),
+                                         cfg_t, "cpu")
+    got = TMD.logits_fn(cfg_t, tp, torch.from_numpy(tokens))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)

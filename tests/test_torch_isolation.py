@@ -37,11 +37,33 @@ def test_no_jax_or_reference_imports(path):
             f"{path.relative_to(ROOT)} imports {mod}"
 
 
-@pytest.mark.parametrize("rel", ["launch/mesh.py", "sharding/rules.py"])
+@pytest.mark.parametrize("rel", ["launch/mesh.py", "sharding/rules.py",
+                                 "launch/specs.py", "launch/roofline.py",
+                                 "launch/dryrun.py", "sharding/constrain.py"])
 def test_cohort_mesh_modules_are_checked(rel):
-    """The cohort mesh and rules, which mirror JAX modules, are among the
-    files checked above."""
+    """The mesh and rules modules, and the dry run's, which mirror JAX
+    modules, are among the files checked above."""
     assert ROOT / "src" / "repro_torch" / rel in FILES
+
+
+def test_importing_dryrun_starts_no_process_group_and_loads_no_jax():
+    """The production mesh is a function: importing the dry run (and the
+    roofline, specs and constrain modules) leaves torch.distributed
+    uninitialised, as importing JAX's leaves device state untouched."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src"), env.get("PYTHONPATH", "")]).rstrip(os.pathsep)
+    code = ("import sys, torch.distributed as dist\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.roofline\n"
+            "import repro_torch.launch.specs, repro_torch.sharding.constrain\n"
+            "bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m == 'repro' "
+            "or m.startswith('repro.')]\n"
+            "print('LOADED', bad, dist.is_initialized())\n"
+            "sys.exit(1 if bad or dist.is_initialized() else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
 
 
 def test_importing_cli_does_not_load_jax():
