@@ -214,15 +214,19 @@
    round on the CPU (largest parameter difference within FL_TOL,
    tests/test_sim.py's bound), and ``fl_aggregate`` with unequal weights
    on the card against the CPU within FL_AGG_TOL.
-21. Dry run (last): ``python -m repro_torch.launch.dryrun`` for
-   qwen2-0.5b at DRYRUN_COMBOS (train_4k and decode_32k on the 16 x 16
-   mesh, train_4k's FL round with 4 local steps on 2 x 16 x 16), fake
-   tensors on cuda over a fake 256- or 512-rank process group, each its
-   own process started before the kernel phases and read here; then the
-   port's roofline over the records.  Each record ``ok``, ``n_params``
-   the full model's parameter count, no cross-pod bytes on the one-pod
-   mesh, and on the FL round's exactly the FedAvg's float32 all-reduce
-   of the device's parameter shard; each record's headline and roofline
+21. Dry run (last): ``python -m repro_torch.launch.dryrun`` at
+   DRYRUN_COMBOS (qwen2-0.5b's train_4k and decode_32k on the 16 x 16
+   mesh and train_4k's FL round with 4 local steps on 2 x 16 x 16;
+   granite-moe-3b-a800m's train_4k and xlstm-1.3b's prefill_32k on 16 x
+   16), fake tensors on cuda over a fake 256- or 512-rank process group,
+   each its own process started before the kernel phases and read here;
+   then the port's roofline over the records.  Each record ``ok``,
+   ``n_params`` the full model's parameter count, no cross-pod bytes on
+   the one-pod mesh, and on the FL round's exactly the FedAvg's float32
+   all-reduce of the device's parameter shard; where
+   DRYRUN_REFERENCE (the JAX package's records, read as JSON) has the
+   combo, the ratios to JAX's printed and granite's temp bytes within
+   DRYRUN_TEMP_RATIO (4x) of JAX's; each record's headline and roofline
    row printed.
 
 It prints one JSON line with the kernels' numbers and, last, the JSON
@@ -743,11 +747,20 @@ XENT_VALUE_TOL, XENT_GRAD_TOL = 1e-5, 1e-4
 FL_COHORTS, FL_LOCAL_STEPS, FL_TOKENS, FL_CPU_LAYERS = 2, 2, 1024, 2
 FL_TOL, FL_AGG_TOL = 1e-4, 1e-6
 FL_WEIGHTS = (3.0, 1.0)
-# the dry run's combos for qwen2-0.5b: (shape, multi_pod, fl_local_steps)
-DRYRUN_COMBOS = (("train_4k", False, 0), ("decode_32k", False, 0),
-                 ("train_4k", True, 4))
+# the dry run's combos: (arch, shape, multi_pod, fl_local_steps);
+# qwen2-0.5b's three, and the MoE with token groups where its 40 experts
+# do not divide 'model' and xlstm's sLSTM at 32k tokens
+DRYRUN_COMBOS = ((ARCH, "train_4k", False, 0), (ARCH, "decode_32k", False, 0),
+                 (ARCH, "train_4k", True, 4),
+                 ("granite-moe-3b-a800m", "train_4k", False, 0),
+                 ("xlstm-1.3b", "prefill_32k", False, 0))
 DRYRUN_DIR = ROOT / "build" / "chip_smoke" / "dryrun"
 DRYRUN_TIMEOUT_S = 900
+# the JAX package's dry-run records (tools/record_dryrun_reference.py):
+# each port record's ratios to the file's printed where it has the
+# combo, and the MoE's temp bytes held within 4x JAX's (DRYRUN_TEMP_RATIO)
+DRYRUN_REFERENCE = ROOT / "tools" / "dryrun_jax_reference.json"
+DRYRUN_TEMP_RATIO = {"granite-moe-3b-a800m__train_4k__pod1": 4.0}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -3152,12 +3165,12 @@ def start_dryruns():
     DRYRUN_DIR.mkdir(parents=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     procs = []
-    for shape, multi_pod, fl in DRYRUN_COMBOS:
+    for arch, shape, multi_pod, fl in DRYRUN_COMBOS:
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-               ARCH, "--shape", shape, "--results-dir", str(DRYRUN_DIR)]
+               arch, "--shape", shape, "--results-dir", str(DRYRUN_DIR)]
         cmd += ["--multi-pod"] if multi_pod else []
         cmd += ["--fl-local-steps", str(fl)] if fl else []
-        name = f"{shape}__{'pod2' if multi_pod else 'pod1'}"
+        name = f"{arch}__{shape}__{'pod2' if multi_pod else 'pod1'}"
         log = open(DRYRUN_DIR / f"{name}.log", "w")
         procs.append((name, subprocess.Popen(
             cmd, stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT),
@@ -3169,7 +3182,8 @@ def start_dryruns():
 
 def dryrun_path(procs, card) -> None:
     """Read the dry runs started by ``start_dryruns`` and hold each record
-    to the model; then the roofline over them."""
+    to the model (and to the JAX package's record where
+    DRYRUN_REFERENCE has it); then the roofline over them."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch import dryrun as DR
     from repro_torch.launch import roofline as RL
@@ -3177,14 +3191,8 @@ def dryrun_path(procs, card) -> None:
     from repro_torch.models import model as MD
     from repro_torch.sharding import rules as R
 
-    cfg = get_config(ARCH)
-    flat = MD.flatten_params(SP.params_shape(cfg))
-    n_params = sum(v.numel() for v in flat.values())
+    reference = json.loads(DRYRUN_REFERENCE.read_text())["records"]
     axes = {"data": 16, "model": 16}
-    specs = R.sanitize_specs(R.param_specs(cfg, flat), flat, axes)
-    shard = sum(v.numel() // math.prod(R._n_shards(e, axes)
-                                       for e in specs[k])
-                for k, v in flat.items())
     for name, proc, log, t in procs:
         rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
         log.close()
@@ -3192,11 +3200,18 @@ def dryrun_path(procs, card) -> None:
         print(f"dry run {name}: exit {rc}, {time.perf_counter() - t:.1f} s "
               f"after its start", flush=True)
         require(rc == 0, f"dry run {name} exited {rc}: {text[-3000:]}")
-        rec = json.loads((DRYRUN_DIR / f"{ARCH}__{name}.json").read_text())
+        rec = json.loads((DRYRUN_DIR / f"{name}.json").read_text())
         require(rec["status"] == "ok", f"dry run {name}: {rec}")
+        cfg = get_config(rec["arch"])
+        flat = MD.flatten_params(SP.params_shape(cfg))
+        n_params = sum(v.numel() for v in flat.values())
         require(rec["n_params"] == n_params,
                 f"dry run {name}: n_params {rec['n_params']} != "
                 f"{n_params}")
+        specs = R.sanitize_specs(R.param_specs(cfg, flat), flat, axes)
+        shard = sum(v.numel() // math.prod(R._n_shards(e, axes)
+                                           for e in specs[k])
+                    for k, v in flat.items())
         coll = rec["collectives"]
         if rec.get("fl_local_steps"):
             require(coll["cross_pod"] == 4 * shard,
@@ -3209,6 +3224,22 @@ def dryrun_path(procs, card) -> None:
         print(f"  {DR.headline(rec)}; cross_pod={coll['cross_pod']} B "
               f"(the FedAvg's float32 all-reduce of a {shard}-element "
               f"parameter shard: {4 * shard} B) [{card}]", flush=True)
+        jax_rec = reference.get(name)
+        if jax_rec is not None:
+            temp = rec["memory"]["temp_size_in_bytes"]
+            want = jax_rec["memory"]["temp_size_in_bytes"]
+            ratio = temp / want
+            print(f"  against the JAX package's record: temp {ratio:.3f}x "
+                  f"({temp} / {want} B), collectives "
+                  f"{coll['total'] / jax_rec['collectives']['total']:.3f}x "
+                  f"({coll['total']} / {jax_rec['collectives']['total']} "
+                  f"B)", flush=True)
+            require(jax_rec["status"] == "ok" and jax_rec["n_params"]
+                    == n_params, f"dry run {name}: the JAX record {jax_rec}")
+            limit = DRYRUN_TEMP_RATIO.get(name)
+            require(limit is None or ratio <= limit,
+                    f"dry run {name}: temp {temp} B is {ratio:.3f}x the "
+                    f"JAX package's {want} B (limit {limit}x)")
         print(f"  roofline: {RL.format_row(rec, RL.roofline_terms(rec))}",
               flush=True)
     for mesh in ("pod1", "pod2"):

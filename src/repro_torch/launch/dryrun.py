@@ -60,7 +60,7 @@ from repro_torch.launch.steps import (make_fl_round_step, make_serve_step,
                                       make_train_step)
 from repro_torch.models import model as MD
 from repro_torch.sharding import rules as R
-from repro_torch.sharding.constrain import use_mesh
+from repro_torch.sharding.constrain import tally_loops, use_mesh
 
 _COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                 "collective-permute")
@@ -136,6 +136,16 @@ def _make_tally_mode():
                 self._collective(func, args)
             self._storage(out)
             return out
+
+        @contextlib.contextmanager
+        def trips(self, n: int):
+            """What one trip of a loop dispatches, counted ``n`` times
+            (``constrain.loop_trips``)."""
+            flops, coll = self.flops, dict(self.coll)
+            yield
+            self.flops += (self.flops - flops) * (n - 1)
+            for k, v in coll.items():
+                self.coll[k] += (self.coll[k] - v) * (n - 1)
 
         def _storage(self, out):
             for t in _tensors(out):
@@ -334,7 +344,8 @@ def dryrun_one(arch: str, shape_name: str, multi_pod: bool,
     B = shape.global_batch
     B_step = B // pods if B % pods == 0 else B
     sizes = R.mesh_axis_sizes(step_mesh)
-    with tally, _dtensor_patches(tally), use_mesh(step_mesh):
+    with tally, _dtensor_patches(tally), use_mesh(step_mesh), \
+            tally_loops(tally.trips):
         if fl:
             # the paper's I local rounds per aggregation (eq 5-8) mapped
             # onto pods-as-cohorts: I per-pod SGD steps, then ONE

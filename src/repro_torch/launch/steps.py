@@ -130,6 +130,15 @@ def _stack_cohorts(rows: List[Dict], like: Dict[str, torch.Tensor]):
     return out
 
 
+def _placed_as(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` with ``like``'s placements on the mesh: an updated parameter
+    keeps its parameter's, whatever its gradient's were."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(t, DTensor) or t.placements == like.placements:
+        return t
+    return t.redistribute(like.device_mesh, like.placements)
+
+
 def _fedavg(t: torch.Tensor) -> torch.Tensor:
     """The float32 mean over the cohort dim, broadcast back to every
     cohort.  With the cohort dim sharded over 'pod' the mean is one
@@ -187,8 +196,8 @@ def make_fl_round_step(cfg: ModelConfig, lr: float = 1e-3,
         for s in range(local_steps):
             mb = {k: v[s] for k, v in batch.items()}
             value, g = MD.value_and_grad(loss, p, mb)
-            p = {k: (w.float() - lr * g[k].float()).to(w.dtype)
-                 for k, w in p.items()}
+            p = {k: _placed_as((w.float() - lr * g[k].float()).to(w.dtype),
+                               w) for k, w in p.items()}
             losses.append(value)
         return p, losses
 

@@ -188,13 +188,32 @@ class _MeshMatmul(torch.autograd.Function):
         return g @ w.transpose(-1, -2), gw
 
 
+class _Reduced(torch.autograd.Function):
+    """A partial DTensor (the vocab-sharded lookup's masked partial sums)
+    reduced, and its gradient placed as the lookup's output with the
+    partial dims whole: the lookup's backward then never meets another
+    kind of partial sum (a plain one from the blocks' backward, which
+    DTensor cannot turn into a masked one)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        from torch.distributed.tensor import Replicate
+        ctx.placements = [Replicate() if p.is_partial() else p
+                          for p in x.placements]
+        return x.redistribute(x.device_mesh, ctx.placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.placements)
+
+
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """table[tokens]; inside the dry run's mesh through ``Fn.embedding``,
     whose backward DTensor can place for a sharded table (the indexing
     backward's ``index_put`` it cannot)."""
     if is_distributed(table):
         # reduce the vocab-sharded lookup's masked partial sums at once
-        out = Fn.embedding(tokens, table)
+        out = _Reduced.apply(Fn.embedding(tokens, table))
         return maybe_constrain(out, ("pod", "data"),
                                *(None,) * (out.ndim - 1))
     return table[tokens]

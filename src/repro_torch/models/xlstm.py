@@ -21,8 +21,9 @@ import torch.nn.functional as Fn
 from repro_torch import rng
 from repro_torch.models.layers import dense_init, matmul, torch_dtype
 from repro_torch.models.mamba import softplus
-from repro_torch.sharding.constrain import (maybe_constrain, merge_last,
-                                           split_last)
+from repro_torch.sharding.constrain import (is_distributed, loop_trips,
+                                           maybe_constrain, merge_last,
+                                           on_local_shards, split_last)
 
 NEG = -1e30                  # the reference's "minus infinity"
 
@@ -61,25 +62,45 @@ def _mlstm_qkv(p, x, h):
     def heads(t):
         return split_last(t, h, dh).transpose(1, 2)      # (B,h,S,dh)
 
+    def gate(w):
+        # the (D, h) gate weights whole inside the mesh (a few KB): left to
+        # DTensor, the product may split the 4 heads over 'model', which
+        # does not divide them
+        return matmul(x.float(), maybe_constrain(p[w], None, None))
+
     q, k, v = (heads(matmul(x, p[w])) for w in ("wq", "wk", "wv"))
-    li = (matmul(x.float(), p["wi"]) + p["bi"]).transpose(1, 2)   # (B,h,S)
-    lf = log_sigmoid(matmul(x.float(), p["wf"]) + p["bf"]).transpose(1, 2)
+    li = (gate("wi") + p["bi"]).transpose(1, 2)                   # (B,h,S)
+    lf = log_sigmoid(gate("wf") + p["bf"]).transpose(1, 2)
     return q, k, v, li, lf
 
 
 def apply_mlstm(p, x, cfg, *, chunk: int = 256):
-    """Chunkwise-parallel mLSTM. x: (B, S, D) -> (B, S, D)."""
-    B, S, d = x.shape
-    h = cfg.xlstm_num_heads
-    dh = d // h
-    q, k, v, li, lf = _mlstm_qkv(p, x, h)          # q: (B,h,S,dh)
-    # xLSTM has few, wide heads (4 x 512): sharding heads over the 16-way
-    # model axis pads 4 -> 16 (4x waste + permute churn); shard head_dim
-    q = maybe_constrain(q, "data", None, None, "model")
-    k = maybe_constrain(k, "data", None, None, "model")
-    v = maybe_constrain(v, "data", None, None, "model")
-    scale = 1.0 / math.sqrt(dh)
+    """Chunkwise-parallel mLSTM. x: (B, S, D) -> (B, S, D).  Inside the
+    mesh q, k and v are gathered over 'model' and each device runs the
+    chunk loop on its local rows (B over 'data'): where the JAX package
+    splits head_dim over 'model', DTensor's own placements for the
+    loop's products split a dim that the 16-way axis does not divide (4
+    heads, or a pod's 8-row batch shard) and its local views fail
+    (torch 2.11)."""
+    q, k, v, li, lf = _mlstm_qkv(p, x, cfg.xlstm_num_heads)   # (B,h,S,dh)
+    if is_distributed(q):
+        q, k, v = (maybe_constrain(t, "data", None, None, None)
+                   for t in (q, k, v))
+        li, lf = (maybe_constrain(t, "data", None, None) for t in (li, lf))
+        out = on_local_shards(lambda *a: _mlstm_chunks(*a, chunk),
+                              q.placements, q, k, v, li, lf)
+    else:
+        out = _mlstm_chunks(q, k, v, li, lf, chunk)
+    out = merge_last(out.transpose(1, 2)).to(x.dtype)
+    out = out * Fn.silu(matmul(x, p["wz"]))
+    return matmul(out, p["wo"])
 
+
+def _mlstm_chunks(q, k, v, li, lf, chunk: int):
+    """The chunk loop: q, k, v (B, h, S, dh), li, lf (B, h, S) -> (B, h,
+    S, dh) float32."""
+    B, h, S, dh = q.shape
+    scale = 1.0 / math.sqrt(dh)
     chunk = min(chunk, S)
     pad = (-S) % chunk
     if pad:
@@ -87,11 +108,11 @@ def apply_mlstm(p, x, cfg, *, chunk: int = 256):
         li = Fn.pad(li, (0, pad), value=NEG)       # padded i-gate: no write
         lf = Fn.pad(lf, (0, pad))
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                device=x.device))
+                                device=q.device))
 
-    C = torch.zeros((B, h, dh, dh), dtype=torch.float32, device=x.device)
-    n = torch.zeros((B, h, dh), dtype=torch.float32, device=x.device)
-    m = torch.zeros((B, h), dtype=torch.float32, device=x.device)
+    C = torch.zeros((B, h, dh, dh), dtype=torch.float32, device=q.device)
+    n = torch.zeros((B, h, dh), dtype=torch.float32, device=q.device)
+    m = torch.zeros((B, h), dtype=torch.float32, device=q.device)
     outs = []
     for s0 in range(0, S + pad, chunk):
         sl = slice(s0, s0 + chunk)
@@ -124,10 +145,7 @@ def apply_mlstm(p, x, cfg, *, chunk: int = 256):
             + torch.einsum("bhs,bhsd,bhsv->bhdv", wstate, kf, vf)
         n = n * carry[..., None] + torch.einsum("bhs,bhsd->bhd", wstate, kf)
         m = m_new
-    out = torch.cat(outs, dim=2)[:, :, :S]
-    out = merge_last(out.transpose(1, 2)).to(x.dtype)
-    out = out * Fn.silu(matmul(x, p["wz"]))
-    return matmul(out, p["wo"])
+    return torch.cat(outs, dim=2)[:, :, :S]
 
 
 def init_mlstm_cache(cfg, batch, layers_leading=(), *, device="cuda"):
@@ -216,18 +234,49 @@ def _slstm_pre(p, x, h):
                           + p[f"b{g}"], h, dh) for g in GATES}
 
 
-def apply_slstm(p, x, cfg):
-    """Sequential sLSTM over the full sequence. x: (B, S, D)."""
-    B, S, d = x.shape
-    h = cfg.xlstm_num_heads
-    pre = _slstm_pre(p, x, h)
-    z0 = torch.zeros((B, h, d // h), dtype=torch.float32, device=x.device)
+RECURRENT = tuple(f"r{g}" for g in GATES)
+
+
+def _slstm_scan(p, pre):
+    """The recurrence over time: p {"rz", ...: (H, dh, dh)}, pre {gate:
+    (B, S, H, dh)} -> the hidden states (B, S, H, dh).  The dry run's
+    tally runs one step and counts it S times (``loop_trips``); its
+    output has the shape of S steps'."""
+    B, S, h, dh = pre["z"].shape
+    z0 = torch.zeros((B, h, dh), dtype=torch.float32, device=pre["z"].device)
     state = (z0, z0, z0, z0)
+    with loop_trips(S) as once:
+        if once is not None:
+            ht = once(lambda *a: _slstm_cell(dict(zip(RECURRENT, a[:4])),
+                                             dict(zip(GATES, a[4:8])),
+                                             a[8:])[0],
+                      *(p[k] for k in RECURRENT),
+                      *(pre[g][:, 0] for g in GATES), *state)[2]
+            return ht[:, None].expand(B, S, h, dh).contiguous()
     hs = []
     for t in range(S):
         state, ht = _slstm_cell(p, {g: pre[g][:, t] for g in GATES}, state)
         hs.append(ht)
-    out = merge_last(torch.stack(hs, dim=1)).to(x.dtype)
+    return torch.stack(hs, dim=1)
+
+
+def apply_slstm(p, x, cfg):
+    """Sequential sLSTM over the full sequence. x: (B, S, D).  Inside the
+    mesh the pre-activations' 'model' shards are gathered once and each
+    device runs the S steps on its local rows (B over 'data'; the
+    recurrent matrices are replicated and each (batch, head) row is
+    independent), so no step dispatches through DTensor."""
+    pre = _slstm_pre(p, x, cfg.xlstm_num_heads)
+    if is_distributed(pre["z"]):
+        pre = [maybe_constrain(pre[g], "data", None, None, None)
+               for g in GATES]
+        hs = on_local_shards(
+            lambda *t: _slstm_scan(dict(zip(RECURRENT, t[4:])),
+                                   dict(zip(GATES, t[:4]))),
+            pre[0].placements, *pre, *(p[k] for k in RECURRENT))
+    else:
+        hs = _slstm_scan(p, pre)
+    out = merge_last(hs).to(x.dtype)
     return matmul(out, p["wo_proj"])
 
 

@@ -23,7 +23,8 @@ import torch
 # process-wide, not thread-local: the autograd engine runs a cuda
 # backward (and remat's recompute) on a thread of its own, which must see
 # the mesh the forward ran under
-_STATE = types.SimpleNamespace(mesh=None, forbidden=frozenset())
+_STATE = types.SimpleNamespace(mesh=None, forbidden=frozenset(),
+                               loop_tally=None)
 
 
 def current_mesh():
@@ -58,6 +59,76 @@ def forbid_axes(*axes):
         yield
     finally:
         _STATE.forbidden = prev
+
+
+@contextlib.contextmanager
+def tally_loops(hook):
+    """Let ``hook(trips)``, a context manager, count the trips of the
+    model's long loops (:func:`loop_trips`): the dry run's tally, which
+    runs one trip and counts what it dispatched ``trips`` times."""
+    prev = _STATE.loop_tally
+    _STATE.loop_tally = hook
+    try:
+        yield
+    finally:
+        _STATE.loop_tally = prev
+
+
+@contextlib.contextmanager
+def loop_trips(trips: int):
+    """Around a loop of ``trips`` trips that each do the same work on
+    tensors of the same shapes.  Under :func:`tally_loops` inside the
+    mesh it yields ``once(fn, *args)``, which runs ``fn(*args)`` (a tuple
+    of tensors) as the one trip and has the tally count its forward and
+    its backward ``trips`` times each, as the JAX dry run counts a while
+    body by its trip count; elsewhere, a real run, None."""
+    hook = _STATE.loop_tally
+    if hook is None or current_mesh() is None or trips <= 1:
+        yield None
+        return
+    yield lambda fn, *args: _Trip.apply(
+        hook, trips, fn, torch.is_grad_enabled()
+        and any(a.requires_grad for a in args), *args)
+
+
+def _same(t):
+    return t
+
+
+class _Trip(torch.autograd.Function):
+    """One trip of a loop run under ``hook(trips)``, its backward too.
+    The backward trip runs in the forward, where no other backward work
+    can be taken into the count: a nested ``autograd.grad`` inside a
+    backward on a cuda device thread would run the outer graph's ready
+    nodes too.  A forward recomputed inside a backward (remat) counts
+    its forward only.  Every float input takes a gradient, as an inner
+    trip's carried state does; the gradients given back are zeros (the
+    fake run has no values)."""
+
+    @staticmethod
+    def forward(ctx, hook, trips, fn, grad, *args):
+        if not grad:
+            with hook(trips):
+                return fn(*args)
+        ctx.like = [a if a.requires_grad else None for a in args]
+        args = [a.detach().requires_grad_(a.is_floating_point())
+                for a in args]
+        # the trip's own graph keeps its saved tensors: under remat's
+        # hooks its backward would recompute the whole block
+        with torch.enable_grad(), hook(trips), \
+                torch.autograd.graph.saved_tensors_hooks(_same, _same):
+            out = fn(*args)
+            if torch._C._current_graph_task_id() == -1:
+                torch.autograd.grad(
+                    out, [a for a in args if a.requires_grad],
+                    [torch.ones_like(o) for o in out], allow_unused=True)
+        return tuple(o.detach() for o in out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, None, None,
+                *(None if a is None else torch.zeros_like(a)
+                  for a in ctx.like))
 
 
 def _filter_entry(mesh_axes, entry):
@@ -184,10 +255,21 @@ def on_local_shards(fn, placements, *args):
     arguments passed as they are), for a computation each shard does
     alone: batch and heads split, nothing summed across shards, as in
     tensor-parallel attention.  Each tensor output comes back a DTensor
-    on their mesh with ``placements``."""
-    from torch.distributed.tensor import DTensor
+    on their mesh with ``placements``.  An argument replicated over a
+    mesh dim that ``placements`` shards gets its gradient there as a
+    partial sum: each shard's slice of the output adds its part (a
+    weight shared by the token groups, gates shared by the D-slices)."""
+    from torch.distributed.tensor import DTensor, Partial
     mesh = next(a.device_mesh for a in args if isinstance(a, DTensor))
-    out = fn(*(a.to_local() if isinstance(a, DTensor) else a for a in args))
+
+    def local(a):
+        if not isinstance(a, DTensor):
+            return a
+        grad = [Partial() if p.is_replicate() and o.is_shard() else p
+                for p, o in zip(a.placements, placements)]
+        return a.to_local(grad_placements=grad)
+
+    out = fn(*map(local, args))
 
     def wrap(t):
         if not isinstance(t, torch.Tensor):

@@ -173,3 +173,135 @@ def test_forward_with_constraint_points_matches_jax():
                                          cfg_t, "cpu")
     got = TMD.logits_fn(cfg_t, tp, torch.from_numpy(tokens))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+# ----------------------------------------------------------------------
+# the zoo on the 2 x 2 mesh: the MoE's token groups where E does not
+# divide 'model', and xlstm's train and prefill
+# ----------------------------------------------------------------------
+
+CASE = """
+import json, sys, torch
+torch.set_num_threads(1)
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.configs.registry import get_smoke_config
+from repro_torch.launch import dryrun as DR
+from repro_torch.launch.mesh import fake_mesh
+from repro_torch.models import moe as MOE
+import torch.distributed as dist
+arch, kind, over, patch = sys.argv[1], sys.argv[2], sys.argv[3], sys.argv[4]
+kw = dict(remat=False)
+kw.update(json.loads(over))
+cfg = get_smoke_config(arch).replace(**kw)
+if patch == "one_group":
+    MOE._num_groups = lambda t: 1
+if patch == "every_step":
+    import contextlib
+    DR.tally_loops = lambda hook: contextlib.nullcontext()
+m = fake_mesh((2, 2), ("data", "model"), "cpu")
+rec = DR.dryrun_one(arch, "small", False, device="cpu", mesh=m, cfg=cfg,
+                    shape=ShapeConfig("small", {S}, {B}, kind))
+dist.destroy_process_group()
+print("RECORD " + json.dumps(rec))
+"""
+MOE_ARCH = "granite-moe-3b-a800m"
+MOE_OVER = {"num_experts": 3}           # E does not divide 'model' (2)
+ZOO_CASES = {
+    "moe": (MOE_ARCH, "train", MOE_OVER, "none"),
+    "moe_one_group": (MOE_ARCH, "train", MOE_OVER, "one_group"),
+    "xlstm_train": ("xlstm-1.3b", "train", {"remat": True}, "none"),
+    "xlstm_train_every_step": ("xlstm-1.3b", "train", {"remat": True},
+                               "every_step"),
+    "xlstm_prefill": ("xlstm-1.3b", "prefill", {}, "none"),
+    "xlstm_prefill_every_step": ("xlstm-1.3b", "prefill", {}, "every_step"),
+}
+
+
+@pytest.fixture(scope="module")
+def zoo_records():
+    """Each case of ZOO_CASES in a process of its own, side by side."""
+    procs = {k: subprocess.Popen(
+        [sys.executable, "-c", CASE.format(S=S, B=B), a, kind,
+         json.dumps(over), patch], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=_env())
+        for k, (a, kind, over, patch) in ZOO_CASES.items()}
+    out = {}
+    for k, p in procs.items():
+        stdout, stderr = p.communicate(timeout=600)
+        assert p.returncode == 0, stdout[-3000:] + stderr[-3000:]
+        line = next(l for l in stdout.splitlines()
+                    if l.startswith("RECORD "))
+        out[k] = json.loads(line[len("RECORD "):])
+    return out
+
+
+def _jax_param_bytes(cfg, axes):
+    """Bytes of one device's parameter shards by JAX's sanitized specs."""
+    pshape = JSP.params_shape(cfg)
+    specs = JR.sanitize_specs(JR.param_specs(cfg, pshape), pshape, axes)
+    leaves = jax.tree_util.tree_leaves(pshape)
+    sleaves = jax.tree_util.tree_leaves(specs,
+                                        is_leaf=lambda x: isinstance(x, P))
+    total = 0
+    for leaf, spec in zip(leaves, sleaves):
+        n = int(np.prod(leaf.shape))
+        for e in spec:
+            n //= JR._n_shards(e, axes)
+        total += n * leaf.dtype.itemsize
+    return total
+
+
+@pytest.mark.parametrize("case", sorted(ZOO_CASES))
+def test_zoo_records_ok_with_jax_params(zoo_records, case):
+    """Every case is ``ok`` with JAX's parameter count and argument bytes
+    (parameter and batch shards by JAX's sanitized specs); no cross-pod
+    bytes on one pod."""
+    arch, kind, over, _ = ZOO_CASES[case]
+    rec = zoo_records[case]
+    assert rec["status"] == "ok" and rec["n_devices"] == 4
+    cfg_j = JREG.get_smoke_config(arch).replace(**over).replace(remat=False)
+    assert rec["n_params"] == JRL._param_counts(cfg_j)[0]
+    assert rec["collectives"]["cross_pod"] == 0
+    assert rec["cost"]["flops"] > 0
+    batch = 3 * (B // 2) * S * 4
+    assert rec["memory"]["argument_size_in_bytes"] == _jax_param_bytes(
+        cfg_j, {"data": 2, "model": 2}) + batch
+
+
+def test_moe_token_groups_lower_the_temp_bytes(zoo_records):
+    """Two token groups (the 'data' axis) against one: each device's
+    buffer holds its group's capacity, not the batch's."""
+    grouped = zoo_records["moe"]["memory"]["temp_size_in_bytes"]
+    one = zoo_records["moe_one_group"]["memory"]["temp_size_in_bytes"]
+    assert grouped < one
+
+
+def test_xlstm_prefill_counts_every_slstm_step(zoo_records):
+    """The fake run runs one sLSTM step and counts it S times
+    (``constrain.loop_trips``): the FLOPs and collectives are those of
+    the run that takes all S steps, and at least the recurrent products
+    of S steps (4 gates, B/2 rows, 4 heads of dh x dh)."""
+    once, every = (zoo_records[k] for k in ("xlstm_prefill",
+                                            "xlstm_prefill_every_step"))
+    assert once["cost"] == every["cost"]
+    assert once["collectives"] == every["collectives"]
+    cfg = TREG.get_smoke_config("xlstm-1.3b")
+    h = cfg.xlstm_num_heads
+    dh = cfg.d_model // h
+    assert once["cost"]["flops"] >= S * 4 * (B // 2) * h * 2 * dh * dh
+
+
+def test_xlstm_train_counts_every_slstm_step(zoo_records):
+    """Through the train step with remat the counted trip's backward is
+    counted S times too, and remat's recompute counts its forward: the
+    collectives are those of the run that takes all S steps, and the
+    FLOPs exceed its by one step's gradient products into the zero
+    initial state (the counted trip stands for an inner step)."""
+    once, every = (zoo_records[k] for k in ("xlstm_train",
+                                            "xlstm_train_every_step"))
+    assert once["collectives"] == every["collectives"]
+    cfg = TREG.get_smoke_config("xlstm-1.3b")
+    h = cfg.xlstm_num_heads
+    dh = cfg.d_model // h
+    assert once["cost"]["flops"] - every["cost"]["flops"] == \
+        4 * (B // 2) * h * 2 * dh * dh

@@ -177,3 +177,65 @@ def test_value_and_grad_gives_zeros_to_unused_leaves():
     assert float(value) == 3.0
     assert torch.equal(grads["a"], torch.arange(3.0))
     assert torch.equal(grads["b"], torch.zeros(2))
+
+
+# the dry run's FL round at one 24-token sequence a device: the 2 x 2 x
+# 2 (pod, data, model) mesh, 2 cohorts x 2 local steps x 2 sequences
+ONE_SEQ = """
+import json, torch
+torch.set_num_threads(1)
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.configs.registry import get_smoke_config
+from repro_torch.launch import dryrun as DR
+from repro_torch.launch.mesh import fake_mesh
+import torch.distributed as dist
+cfg = get_smoke_config("qwen2-0.5b").replace(remat=False)
+m = fake_mesh((2, 2, 2), ("pod", "data", "model"), "cpu")
+rec = DR.dryrun_one("qwen2-0.5b", "small", True, device="cpu", mesh=m,
+                    cfg=cfg, shape=ShapeConfig("small", 24, 4, "train"),
+                    fl_local_steps=2)
+dist.destroy_process_group()
+print("RECORD " + json.dumps(rec))
+"""
+
+
+def test_dryrun_fl_round_at_one_sequence_a_device():
+    """The vocab-sharded lookup's masked partial sums meet a plain partial
+    gradient in the backward at one sequence a device: the record is
+    ``ok``, and its cross-pod bytes are exactly the float32 FedAvg of the
+    device's parameter shard (JAX's sanitized specs on 'data' x 'model')."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from jax.sharding import PartitionSpec as P
+
+    from repro.launch import specs as JSP
+    from repro.sharding import rules as JR
+
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(root / "src"), env.get("PYTHONPATH", "")]).rstrip(os.pathsep)
+    env.pop("JAX_PLATFORMS", None)
+    p = subprocess.run([sys.executable, "-c", ONE_SEQ], capture_output=True,
+                       text=True, env=env, timeout=600)
+    assert p.returncode == 0, p.stdout[-3000:] + p.stderr[-3000:]
+    line = next(l for l in p.stdout.splitlines() if l.startswith("RECORD "))
+    rec = json.loads(line[len("RECORD "):])
+    assert rec["status"] == "ok" and rec["fl_local_steps"] == 2
+    cfg = JREG.get_smoke_config(ARCH)
+    axes = {"data": 2, "model": 2}
+    pshape = JSP.params_shape(cfg)
+    specs = JR.sanitize_specs(JR.param_specs(cfg, pshape), pshape, axes)
+    shard = 0
+    for leaf, spec in zip(jax.tree_util.tree_leaves(pshape),
+                          jax.tree_util.tree_leaves(
+                              specs, is_leaf=lambda x: isinstance(x, P))):
+        n = int(np.prod(leaf.shape))
+        for e in spec:
+            n //= JR._n_shards(e, axes)
+        shard += n
+    assert rec["collectives"]["cross_pod"] == 4 * shard

@@ -177,3 +177,60 @@ def test_vmap_grad_matches_per_client_loop():
             np.testing.assert_allclose(batched[k][c].numpy(),
                                        one[k].numpy(), rtol=TOL, atol=TOL,
                                        err_msg=k)
+
+
+def _jax_route_grouped(probs, cfg, C):
+    """``apply_moe``'s routing lines at G groups, from (G, Tg, E) probs:
+    (keep, slot), each (G, Tg*K)."""
+    G, Tg, E = probs.shape
+    K = cfg.experts_per_token
+    _, idx = jax.lax.top_k(probs, K)
+    flat_e = idx.reshape(G, Tg * K)
+    onehot = jax.nn.one_hot(flat_e, E, dtype=jnp.int32)
+    ranks = jnp.cumsum(onehot, axis=1) - onehot
+    rank = jnp.take_along_axis(ranks, flat_e[..., None], axis=2)[..., 0]
+    keep = rank < C
+    slot = jnp.where(keep, flat_e * C + rank, E * C)
+    return np.asarray(keep), np.asarray(slot)
+
+
+@pytest.mark.parametrize("shape", [(2, 24), (4, 10)])
+def test_two_token_groups_match_jax(shape, monkeypatch):
+    """G = 2 in both packages (each's ``_num_groups`` patched; under the
+    dry run's mesh G is the 'data' axis size): the (G, Tg*K) keep and
+    slot are JAX's bit for bit and differ from one group's, each group's
+    capacity is moe_capacity(T / 2), and the output and the auxiliary
+    losses are JAX's within TOL."""
+    cfg_j, cfg_t = _cfgs(moe_capacity_factor=0.5)
+    pj, pt = _weights(cfg_j, 5)
+    x = np.random.default_rng(6).standard_normal(
+        (*shape, cfg_j.d_model)).astype(np.float32)
+    T, K = shape[0] * shape[1], cfg_j.experts_per_token
+    one_out, _, one_keep, _ = TMOE.moe_forward(pt, torch.tensor(x), cfg_t)
+    monkeypatch.setattr(JMOE, "_num_groups", lambda t: 2)
+    monkeypatch.setattr(TMOE, "_num_groups", lambda t: 2)
+    want, aux_j = JMOE.apply_moe(pj, jnp.asarray(x), cfg_j)
+    got, aux_t = TMOE.apply_moe(pt, torch.tensor(x), cfg_t)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
+    np.testing.assert_allclose(float(aux_t["moe_aux_loss"]),
+                               float(aux_j["moe_aux_loss"]), rtol=TOL)
+    assert np.float32(aux_t["moe_drop_frac"]) == np.float32(
+        aux_j["moe_drop_frac"])
+    assert float(aux_t["moe_drop_frac"]) > 0
+
+    C = min(JMOE.moe_capacity(T // 2, cfg_j), T // 2 * K)
+    probs = np.asarray(jax.nn.softmax(
+        jnp.asarray(x).reshape(2, T // 2, -1) @ pj["router"], axis=-1))
+    keep_j, slot_j = _jax_route_grouped(jnp.asarray(probs), cfg_j, C)
+    _, _, keep, slot, counts = TMOE.route(torch.tensor(probs), cfg_t, C)
+    np.testing.assert_array_equal(keep.numpy(), keep_j)
+    np.testing.assert_array_equal(slot.numpy(), slot_j)
+    _, probs_t, keep_f, counts_f = TMOE.moe_forward(pt, torch.tensor(x),
+                                                    cfg_t)
+    assert probs_t.shape == (2, T // 2, cfg_t.num_experts)
+    np.testing.assert_array_equal(keep_f.numpy(), keep_j)
+    assert torch.equal(counts_f, counts) and int(counts.sum()) == T * K
+    # one group ranks over all T tokens: another set is dropped
+    assert not np.array_equal(one_keep.numpy(), keep_j.reshape(-1))
+    assert not torch.equal(one_out, got)
