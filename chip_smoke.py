@@ -39,7 +39,9 @@
    defaults (REFERENCE_WINNERS).
 5. Agreement: the same path on the CPU, where every kernel is its plain
    version (the path the CPU tests hold against the JAX package), must
-   select the same clients every round, with the same round metrics.
+   select the same clients every round, with the same round metrics (a
+   process of its own, started with the dry runs: host work only; read
+   after the FL round step).
 6. Stage-1 assign path: the same run with k-means' ``assign_fn`` hook
    set to ``ops.kmeans_assign`` (as ``FederatedServer(assign_fn=...)``
    takes it), counts reset before and read after; it must pick the
@@ -92,7 +94,10 @@
    resumed leg; save and restore seconds); ``--audit-sync`` (warm rounds
    under ``set_sync_debug_mode("error")``) and four more audited rounds
    with the counted transfers per round; ``--profile-dir`` (a trace).
-10. Robust path: the reference benchmark's robust_agg and self_healing
+10. Robust path (a process of its own on the card, started after the
+   kernel phases beside the next ones, as it is host-bound, and read
+   before the zoo serving path): the reference benchmark's robust_agg
+   and self_healing
    fleets (ROBUST_CELLS: 32 clients, 4 clusters, 60 rounds on ``--runtime
    device``, clean and selfheal 100; undefended and ``trimmed`` FedAvg
    under a 30 % ``scale`` attack, clean, clean with the watchdog, the
@@ -129,20 +134,22 @@
    from ``init_params(cfg, PRNGKey(0))``) with ``attn_impl="pallas"``:
    ``logits_fn`` prefill of 4,096 tokens, counts reset before and read
    after (24 flash_attention launches), held against the plain
-   ``attn_impl="naive"`` path; teacher-forced ``decode_step`` over 1,025
-   tokens held against the kernel prefill; and ``serve`` of 4 x 32
+   ``attn_impl="naive"`` path; teacher-forced ``decode_step`` over the
+   first 128 of 1,025 tokens held against the kernel prefill of all
+   1,025 (DECODE_STEPS); and ``serve`` of 4 x 32
    tokens, whose ids must be the argmax of the logits that made them.
 13. Transformer path (run before the selection path): ``--mode
    transformer`` at the CLI defaults (each arch's smoke config, 20 FL
-   clients, 5 clusters, seed 0): qwen2-0.5b for 30 rounds on
-   ``sequential``, ``vectorized`` and ``device``, and qwen1.5-4b,
+   clients, 5 clusters, seed 0): qwen2-0.5b for TF_ROUNDS (10) of its
+   reference's 30 rounds on ``sequential``, ``vectorized`` and
+   ``device``, and qwen1.5-4b,
    qwen1.5-32b, starcoder2-3b and phi-3-vision-4.2b for 3 rounds on
    ``sequential``, counts reset before and read after each run (26
    ``lloyd_step`` launches), each held to the JAX package's stage-1
    labels and winners in every round and to its test loss, accuracy and
    energy std within TF_LOSS_TOL / TF_ACC_TOL (TRANSFORMER_REFERENCE,
    written by tools/record_transformer_reference.py); then qwen2-0.5b
-   on ``sharded`` for its 30 rounds, held the same way to the JAX
+   on ``sharded`` for its 10 rounds, held the same way to the JAX
    package's ``vectorized`` run and to the card's vectorized params;
    stage-1 seconds, seconds per round and the ``cohort/train`` share per
    run.
@@ -179,7 +186,7 @@
    model of the same draws at the same width is held to
    tests/test_models.py's rule for its arch (RULE_BY_SHARE): the kernel
    prefill against the naive one, and 32 decode steps against a
-   prefill of the same tokens; for xlstm every block's 128 decode steps
+   prefill of the same tokens; for xlstm every block's 32 decode steps
    against its full-sequence form (ZOO_SERVING says why block by
    block).
 17. Whisper serving path (after the zoo serving path): whisper-tiny's
@@ -202,7 +209,7 @@
    32) serve replayed.
 19. Examples path: the four examples/*_torch.py on the card, each a
    subprocess (EXAMPLE_RUNS, all started together; scheme_comparison at
-   5 rounds, serve_decode also on whisper-tiny); each must exit 0 and
+   3 rounds, serve_decode also on whisper-tiny); each must exit 0 and
    prints its ``lloyd_step`` launches, which the kernels line adds.
 20. FL round step (after the full-width train step):
    ``make_fl_round_step`` on qwen2-0.5b's full CONFIG (24 layers, bf16,
@@ -212,22 +219,30 @@
    parameters moved, cold and warm seconds of a round.  Then the same
    round at 2 layers, full width, float32 on the card against the port's
    round on the CPU (largest parameter difference within FL_TOL,
-   tests/test_sim.py's bound), and ``fl_aggregate`` with unequal weights
-   on the card against the CPU within FL_AGG_TOL.
+   tests/test_sim.py's bound; the CPU's round runs in a process of its
+   own from the outset, on the inputs the card then takes), and
+   ``fl_aggregate`` with unequal weights on the card against the CPU
+   within FL_AGG_TOL.
 21. Dry run (last): ``python -m repro_torch.launch.dryrun`` at
    DRYRUN_COMBOS (qwen2-0.5b's train_4k and decode_32k on the 16 x 16
    mesh and train_4k's FL round with 4 local steps on 2 x 16 x 16;
-   granite-moe-3b-a800m's train_4k and xlstm-1.3b's prefill_32k on 16 x
-   16), fake tensors on cuda over a fake 256- or 512-rank process group,
-   each its own process started before the kernel phases and read here;
-   then the port's roofline over the records.  Each record ``ok``,
-   ``n_params`` the full model's parameter count, no cross-pod bytes on
-   the one-pod mesh, and on the FL round's exactly the FedAvg's float32
-   all-reduce of the device's parameter shard; where
-   DRYRUN_REFERENCE (the JAX package's records, read as JSON) has the
-   combo, the ratios to JAX's printed and granite's temp bytes within
-   DRYRUN_TEMP_RATIO (4x) of JAX's; each record's headline and roofline
-   row printed.
+   granite-moe-3b-a800m's train_4k and xlstm-1.3b's train_4k and
+   prefill_32k on 16 x 16), fake tensors on cuda over a fake 256- or
+   512-rank process group, each its own process (at low priority)
+   started before the kernel phases and read here; then the port's
+   roofline over the records.  Each record ``ok``, ``n_params`` the full
+   model's parameter count, no cross-pod bytes on the one-pod mesh, and
+   on the FL round's
+   exactly the FedAvg's float32 all-reduce of the device's parameter
+   shard; where DRYRUN_REFERENCE (the JAX package's records, read as
+   JSON) has the combo, the ratios to JAX's printed, and the temp bytes
+   of DRYRUN_TEMP_RATIO's combos within its factor of JAX's (granite's
+   4x, xlstm's 2x); each record's headline and roofline row printed.
+   One more process (SMALL_MESHES, started with them) runs every arch's
+   smoke config on the tests' small fake meshes under this host's torch
+   (``dryrun --small-meshes``: train, prefill and decode on 2 x 2, the
+   FL round on 2 x 2 x 2): every record ``ok`` with the smoke config's
+   parameter count.
 
 It prints one JSON line with the kernels' numbers and, last, the JSON
 status line.  ``--profile`` adds a torch.profiler pass before them:
@@ -618,8 +633,10 @@ FLASH_TOL = {torch.bfloat16: (2.0 ** -7, 1e-4), torch.float32: (0.0, 1e-4)}
 ARCH = "qwen2-0.5b"
 PREFILL_LEN = 4096
 # > 1024, so logits_fn runs the kernel; cut from 1,536 so that the whole
-# run, with the whisper, vlm and examples paths, stays under 950 s
-DECODE_LEN = 1025
+# run, with the whisper, vlm and examples paths, stays under 950 s.  Its
+# first DECODE_STEPS positions are decoded teacher-forced and held to
+# that kernel prefill (a cut for time, PERF.md §4)
+DECODE_LEN, DECODE_STEPS = 1025, 128
 # the bound tests/test_models.py holds decode to against the forward pass
 LOGITS_REL_TOL = 2e-2
 # the bound tests/test_sim.py holds every runtime's params to against the
@@ -646,6 +663,10 @@ TF_SHARDED_AS = "vectorized"
 # 1e-6)
 TF_LOSS_TOL = 1e-5
 TF_ACC_TOL = 1.0 / (64 * 31)
+# each run takes at most this many of its reference's rounds, held to
+# their first rounds (qwen2-0.5b's 30 cut to 10 for time, PERF.md §4:
+# the first rounds of a longer run are the same run's)
+TF_ROUNDS = 10
 # the zoo transformer path: the MoE, Mamba and xLSTM archs' smoke configs
 # at the same CLI defaults for 3 rounds, held to the JAX package's runs
 # (tools/record_zoo_reference.py) under the same tolerances
@@ -655,8 +676,9 @@ ZOO_REFERENCE = ROOT / "tools" / "zoo_reference.json"
 # in float32: the steps.  Over these steps on the CPU xlstm-1.3b's 48
 # blocks keep within 6.1e-3 (the JAX package) and 5.8e-3 (the port) of
 # their largest output in bf16, 5.1e-5 and 1.3e-5 in float32
-# (tools/xlstm_depth_gap.py)
-BLOCK_STEPS = 128
+# (tools/xlstm_depth_gap.py); 32 of them are run (a cut for time,
+# PERF.md §4)
+BLOCK_STEPS = 32
 # the zoo serving path, each model at full width from PRNGKey(0), bf16,
 # attn_impl "pallas": (arch, layers kept or None for all, prefill
 # tokens, bf16 teacher-forced decode steps (measured), float32 decode
@@ -715,13 +737,15 @@ WHISPER_CLIPS, WHISPER_PROMPT, WHISPER_GEN = 8, 4, 444
 WHISPER_REFERENCE = ROOT / "tools" / "whisper_reference.json"
 WHISPER_LOGIT_TOL = 1e-4
 # the vlm serving path: phi-3-vision-4.2b's CONFIG, a 4,096-token prefill
-# (its first 256 slots the image prefix), 256 decode steps
+# (its first 256 slots the image prefix), 256 decode steps (at 64 steps
+# the bf16 decode reads 0.0202 of the first 64 positions' largest logit,
+# over LOGITS_REL_TOL: PERF.md §7)
 VLM_PREFILL, VLM_DECODE = 4096, 256
 # the examples path: (name, [script, args...]), each run on the card
 EXAMPLE_RUNS = (
     ("quickstart", ["quickstart_torch.py"]),
     ("fl_pretrain_lm", ["fl_pretrain_lm_torch.py"]),
-    ("scheme_comparison", ["scheme_comparison_torch.py", "--rounds", "5"]),
+    ("scheme_comparison", ["scheme_comparison_torch.py", "--rounds", "3"]),
     ("serve_decode_whisper", ["serve_decode_torch.py", "--arch",
                               "whisper-tiny"]),
     ("serve_decode", ["serve_decode_torch.py"]),
@@ -753,14 +777,23 @@ FL_WEIGHTS = (3.0, 1.0)
 DRYRUN_COMBOS = ((ARCH, "train_4k", False, 0), (ARCH, "decode_32k", False, 0),
                  (ARCH, "train_4k", True, 4),
                  ("granite-moe-3b-a800m", "train_4k", False, 0),
+                 ("xlstm-1.3b", "train_4k", False, 0),
                  ("xlstm-1.3b", "prefill_32k", False, 0))
 DRYRUN_DIR = ROOT / "build" / "chip_smoke" / "dryrun"
 DRYRUN_TIMEOUT_S = 900
 # the JAX package's dry-run records (tools/record_dryrun_reference.py):
 # each port record's ratios to the file's printed where it has the
-# combo, and the MoE's temp bytes held within 4x JAX's (DRYRUN_TEMP_RATIO)
+# combo, and the temp bytes of those named here held within the factor
+# of JAX's (DRYRUN_TEMP_RATIO): the MoE's within 4x, xlstm's within 2x
 DRYRUN_REFERENCE = ROOT / "tools" / "dryrun_jax_reference.json"
-DRYRUN_TEMP_RATIO = {"granite-moe-3b-a800m__train_4k__pod1": 4.0}
+DRYRUN_TEMP_RATIO = {"granite-moe-3b-a800m__train_4k__pod1": 4.0,
+                     "xlstm-1.3b__train_4k__pod1": 2.0,
+                     "xlstm-1.3b__prefill_32k__pod1": 2.0}
+# the tests' small meshes under this host's torch: every arch's smoke
+# config through train, prefill and decode on 2 x 2 and the FL round on
+# 2 x 2 x 2 (``dryrun --small-meshes``, tests/test_torch_small_mesh.py),
+# one more host-only process; every record must be ``ok``
+SMALL_MESHES = "small_meshes"
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1135,15 +1168,15 @@ def serving_path(OPS, cuda) -> int:
     state = MD.init_decode_state(cfg, 1, DECODE_LEN, cuda)
     dmax = torch.zeros((), device=cuda)
     t = time.perf_counter()
-    for p in range(DECODE_LEN):
+    for p in range(DECODE_STEPS):
         lg, state = MD.decode_step(cfg, params, state, toks[:, p], p)
         dmax = torch.maximum(dmax, (lg[0] - full[p]).abs().max())
     torch.cuda.synchronize()
     dec_s = time.perf_counter() - t
-    rel = float(dmax / full.abs().max())
-    print(f"decode: {DECODE_LEN} teacher-forced steps in {dec_s!r} s "
-          f"({DECODE_LEN / dec_s!r} steps/s), rel_err_vs_kernel_prefill="
-          f"{rel!r}", flush=True)
+    rel = float(dmax / full[:DECODE_STEPS].abs().max())
+    print(f"decode: {DECODE_STEPS} teacher-forced steps of a {DECODE_LEN}-"
+          f"token cache in {dec_s!r} s ({DECODE_STEPS / dec_s!r} steps/s), "
+          f"rel_err_vs_kernel_prefill={rel!r}", flush=True)
     require(rel < LOGITS_REL_TOL,
             f"decode vs kernel prefill: {rel} >= {LOGITS_REL_TOL}")
     del full, state
@@ -2852,11 +2885,12 @@ def robust_path(OPS, obs, card) -> int:
 def transformer_path(OPS, TRAIN, obs, servers,
                      reference=TRANSFORMER_REFERENCE) -> int:
     """``--mode transformer`` at the CLI defaults on the card for every
-    run of ``reference`` (TRANSFORMER_REFERENCE: qwen2-0.5b for 30 rounds
-    on each runtime and each other dense arch for 3 on ``sequential``;
+    run of ``reference`` (TRANSFORMER_REFERENCE: qwen2-0.5b on each
+    runtime and each other dense arch on ``sequential``;
     ZOO_REFERENCE: the MoE, Mamba and xLSTM archs), counts reset before
     and read after each run (26 ``lloyd_step`` launches), held to the JAX
-    package's labels, winners and round metrics.  On
+    package's labels, winners and round metrics in its first TF_ROUNDS
+    rounds.  On
     TRANSFORMER_REFERENCE, its first arch also runs ``sharded``, held to
     the JAX package's TF_SHARDED_AS run and to the card's params of that
     runtime.  Returns the launches."""
@@ -2869,7 +2903,8 @@ def transformer_path(OPS, TRAIN, obs, servers,
     total = 0
     for arch, runtime in runs:
         as_rt = TF_SHARDED_AS if runtime == "sharded" else runtime
-        want, rounds = ref["runs"][arch][as_rt], ref["rounds"][arch]
+        want = ref["runs"][arch][as_rt]
+        rounds = min(ref["rounds"][arch], TF_ROUNDS)
         reset_counts(OPS)
         obs.SPANS.clear()
         result = TRAIN.main(["--mode", "transformer", "--quiet", "--arch",
@@ -2888,9 +2923,13 @@ def transformer_path(OPS, TRAIN, obs, servers,
         labels = obs.device_get(srv.state.clusters).tolist()
         require(labels == want["clusters"], f"{tag}: stage-1 labels "
                 f"{labels}, the JAX package's {want['clusters']}")
-        require(result["selected"] == want["selected"],
+        require(result["selected"] == want["selected"][:rounds],
                 f"{tag}: winners differ from the JAX package's ("
                 f"{first_diff(result['selected'], want['selected'])})")
+        require(all(len(result[k]) == rounds for k in ("test_loss",
+                                                       "energy_std",
+                                                       "test_acc")),
+                f"{tag}: not {rounds} rounds of metrics")
         errs = {}
         for key, tol in (("test_loss", TF_LOSS_TOL),
                          ("energy_std", TF_LOSS_TOL),
@@ -3088,9 +3127,10 @@ def fl_batch(cfg, device, seed=0):
             "mask": torch.ones(toks[..., 1:].shape, device=device)}
 
 
-def fl_round_path(cuda, card) -> None:
+def fl_round_path(cuda, card, fl_cpu) -> None:
     """``make_fl_round_step`` at full width on the card, then at 2 layers
-    in float32 against the CPU, and ``fl_aggregate`` likewise."""
+    in float32 against the CPU (the round :func:`start_fl_cpu_round`
+    ran on its inputs), and ``fl_aggregate`` likewise."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.steps import fl_aggregate, make_fl_round_step
     from repro_torch.models import model as MD
@@ -3129,15 +3169,19 @@ def fl_round_path(cuda, card) -> None:
     cfg2 = cfg.replace(num_layers=FL_CPU_LAYERS, dtype="float32")
     step2 = make_fl_round_step(cfg2, local_steps=FL_LOCAL_STEPS,
                                n_cohorts=FL_COHORTS)
-    flat, batch = fl_cohorts(cfg2, cuda), fl_batch(cfg2, cuda, seed=1)
-    got, gloss = step2(MD.nested_params(flat), batch)
+    proc, log = fl_cpu
+    rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+    log.close()
+    require(rc == 0, f"the CPU's FL round exited {rc}: "
+            f"{FL_CPU.with_suffix('.log').read_text()[-3000:]}")
+    cpu_run = torch.load(FL_CPU)
+    FL_CPU.unlink()
     cpu = torch.device("cpu")
-    t = time.perf_counter()
-    want, wloss = step2(MD.nested_params({k: v.to(cpu)
-                                          for k, v in flat.items()}),
-                        {k: v.to(cpu) for k, v in batch.items()})
-    cpu_s = time.perf_counter() - t
-    got, want = MD.flatten_params(got), MD.flatten_params(want)
+    flat = {k: v.to(cuda) for k, v in cpu_run["flat"].items()}
+    batch = {k: v.to(cuda) for k, v in cpu_run["batch"].items()}
+    want, wloss, cpu_s = cpu_run["want"], cpu_run["loss"], cpu_run["cpu_s"]
+    got, gloss = step2(MD.nested_params(flat), batch)
+    got = MD.flatten_params(got)
     diff = max(float((got[k].to(cpu) - want[k]).abs().max()) for k in got)
     print(f"fl round at {FL_CPU_LAYERS} layers, full width, float32: card "
           f"vs CPU max |d params|={diff!r} (tol {FL_TOL}); loss "
@@ -3146,14 +3190,14 @@ def fl_round_path(cuda, card) -> None:
     require(diff <= FL_TOL, f"fl round: card and CPU differ by {diff}")
     w = torch.tensor(FL_WEIGHTS)
     agg_c = fl_aggregate(flat, w.to(cuda))
-    agg_p = fl_aggregate({k: v.to(cpu) for k, v in flat.items()}, w)
+    agg_p = fl_aggregate(cpu_run["flat"], w)
     diff = max(float((agg_c[k].to(cpu) - agg_p[k]).abs().max())
                for k in agg_c)
     print(f"fl_aggregate weights {FL_WEIGHTS}: card vs CPU max |d|="
           f"{diff!r} (tol {FL_AGG_TOL})", flush=True)
     require(diff <= FL_AGG_TOL, f"fl_aggregate: card and CPU differ by "
             f"{diff}")
-    del flat, batch, got, agg_c
+    del flat, batch, got, agg_c, cpu_run
     torch.cuda.empty_cache()
 
 
@@ -3171,13 +3215,194 @@ def start_dryruns():
         cmd += ["--multi-pod"] if multi_pod else []
         cmd += ["--fl-local-steps", str(fl)] if fl else []
         name = f"{arch}__{shape}__{'pod2' if multi_pod else 'pod1'}"
-        log = open(DRYRUN_DIR / f"{name}.log", "w")
-        procs.append((name, subprocess.Popen(
-            cmd, stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT),
-            log, time.perf_counter()))
+        procs.append(_start_dryrun(name, cmd, env))
+    procs.append(_start_dryrun(SMALL_MESHES, [
+        sys.executable, "-m", "repro_torch.launch.dryrun", "--small-meshes",
+        "--arch", "all", "--quiet", "--results-dir",
+        str(DRYRUN_DIR / SMALL_MESHES)], env))
     atexit.register(lambda: [p.kill() for _, p, _, _ in procs
                              if p.poll() is None])
     return procs
+
+
+CPU_AGREEMENT = ROOT / "build" / "chip_smoke" / "agreement_cpu.json"
+CPU_AGREEMENT_KEYS = ("selected", "energy_std", "mean_bid", "vds_gap",
+                      "test_loss", "test_acc", "wall_s")
+
+
+def _own_process(fn: str, *args):
+    """``python -c`` code that runs chip_smoke's ``fn(*args)`` (strings)
+    in a process of its own and exits with its return value."""
+    return [sys.executable, "-c",
+            "import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            f"sys.exit(chip_smoke.{fn}(*sys.argv[2:]))", str(ROOT),
+            *map(str, args)]
+
+
+def start_cpu_agreement():
+    """:func:`cpu_agreement_process` in a process of its own at low
+    priority, started beside the dry runs.  Killed at exit if still
+    running."""
+    CPU_AGREEMENT.parent.mkdir(parents=True, exist_ok=True)
+    CPU_AGREEMENT.unlink(missing_ok=True)
+    log = open(CPU_AGREEMENT.with_suffix(".log"), "w")
+    proc = subprocess.Popen(
+        _own_process("cpu_agreement_process"), stdout=log,
+        stderr=subprocess.STDOUT, env=dict(os.environ,
+                                           PYTHONPATH=str(ROOT / "src"),
+                                           OMP_NUM_THREADS="2"),
+        cwd=ROOT, preexec_fn=_low)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, log
+
+
+def cpu_agreement_process() -> int:
+    """The paper path's run on the CPU (MAIN_ARGS with ``--device
+    cpu``), its round metrics written to CPU_AGREEMENT."""
+    from repro_torch.launch import train as TRAIN
+    r = TRAIN.main(MAIN_ARGS + ["--device", "cpu"])
+    CPU_AGREEMENT.write_text(json.dumps({k: r[k]
+                                         for k in CPU_AGREEMENT_KEYS}))
+    return 0
+
+
+ROBUST_LOG = ROOT / "build" / "chip_smoke" / "robust.log"
+ROBUST_RESULT = ROOT / "build" / "chip_smoke" / "robust.json"
+ROBUST_TIMEOUT_S = 900
+
+
+def start_robust(card):
+    """The robust path (:func:`robust_path`) in a process of its own on
+    the card, started after the kernel phases: it is host-bound, so the
+    main path's next phases run beside it.  Killed at exit if still
+    running."""
+    ROBUST_LOG.parent.mkdir(parents=True, exist_ok=True)
+    ROBUST_RESULT.unlink(missing_ok=True)
+    log = open(ROBUST_LOG, "w")
+    proc = subprocess.Popen(_own_process("robust_process", card),
+                            stdout=log, stderr=subprocess.STDOUT,
+                            env=dict(os.environ,
+                                     PYTHONPATH=str(ROOT / "src")), cwd=ROOT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, log, time.perf_counter()
+
+
+def robust_process(card) -> int:
+    """The robust path in this process (:func:`start_robust`): its lines
+    printed, its ``lloyd_step`` launches written to ROBUST_RESULT."""
+    from repro_torch import obs
+    from repro_torch.kernels import build as BUILD
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import kmeans as KM
+    from repro_torch.kernels import ops as OPS
+    from repro_torch.launch import train as TRAIN
+    TRAIN.set_float32_precision()
+    BUILD.build(KM.LIBRARY, FA.LIBRARY)         # built by the main process
+    launches = robust_path(OPS, obs, card)
+    ROBUST_RESULT.write_text(json.dumps({"launches": launches}))
+    return 0
+
+
+def robust_result(run) -> int:
+    """The robust process's lines (printed here) and its launches."""
+    proc, log, t = run
+    rc = proc.wait(timeout=ROBUST_TIMEOUT_S)
+    log.close()
+    text = ROBUST_LOG.read_text()
+    print(text, end="", flush=True)
+    print(f"robust path: its process exited {rc} "
+          f"{time.perf_counter() - t:.1f} s after its start", flush=True)
+    require(rc == 0 and ROBUST_RESULT.exists(),
+            f"the robust path failed: {text[-3000:]}")
+    return json.loads(ROBUST_RESULT.read_text())["launches"]
+
+
+FL_CPU = ROOT / "build" / "chip_smoke" / "fl_cpu_round.pt"
+
+
+def start_fl_cpu_round():
+    """:func:`fl_cpu_round` in a process of its own at low priority."""
+    FL_CPU.parent.mkdir(parents=True, exist_ok=True)
+    FL_CPU.unlink(missing_ok=True)
+    log = open(FL_CPU.with_suffix(".log"), "w")
+    proc = subprocess.Popen(
+        _own_process("fl_cpu_round"), stdout=log, stderr=subprocess.STDOUT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                 OMP_NUM_THREADS="2"), cwd=ROOT, preexec_fn=_low)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, log
+
+
+def fl_cpu_round() -> int:
+    """The FL round at FL_CPU_LAYERS layers, full width, float32 on the
+    CPU: its inputs (cohorts from ``PRNGKey(c)``, the seeded batch), the
+    params after the round, its loss and seconds, saved to FL_CPU, where
+    the card's round takes the same inputs."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.steps import make_fl_round_step
+    from repro_torch.models import model as MD
+    cpu = torch.device("cpu")
+    cfg = get_config(ARCH).replace(num_layers=FL_CPU_LAYERS,
+                                   dtype="float32")
+    step = make_fl_round_step(cfg, local_steps=FL_LOCAL_STEPS,
+                              n_cohorts=FL_COHORTS)
+    flat, batch = fl_cohorts(cfg, cpu), fl_batch(cfg, cpu, seed=1)
+    t = time.perf_counter()
+    want, loss = step(MD.nested_params(flat), batch)
+    torch.save({"flat": flat, "batch": batch,
+                "want": MD.flatten_params(want), "loss": float(loss),
+                "cpu_s": time.perf_counter() - t}, FL_CPU)
+    return 0
+
+
+def cpu_agreement_result(run):
+    """The round metrics of :func:`start_cpu_agreement`'s run."""
+    proc, log = run
+    rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+    log.close()
+    require(rc == 0, f"the CPU run exited {rc}: "
+            f"{CPU_AGREEMENT.with_suffix('.log').read_text()[-3000:]}")
+    return json.loads(CPU_AGREEMENT.read_text())
+
+
+def _low():
+    """In a child: run at low priority, so that the host work started
+    beside the main path (the dry runs, the CPU runs) takes the cores
+    that the main path leaves idle."""
+    os.nice(10)
+
+
+def _start_dryrun(name, cmd, env):
+    log = open(DRYRUN_DIR / f"{name}.log", "w")
+    return (name, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                   env=env, cwd=ROOT, preexec_fn=_low),
+            log, time.perf_counter())
+
+
+def small_meshes_records(SP, MD) -> None:
+    """Hold the small-mesh sweep's records: each ``ok`` with its smoke
+    config's parameter count."""
+    from repro_torch.configs.registry import ARCH_IDS, get_smoke_config
+    from repro_torch.launch import dryrun as DR
+    failed = []
+    for arch in ARCH_IDS:
+        flat = MD.flatten_params(SP.params_shape(get_smoke_config(arch)))
+        n_params = sum(v.numel() for v in flat.values())
+        row = []
+        for case in DR.SMALL_CASES:
+            rec = json.loads(Path(DR.result_path(
+                arch, f"small_{case}", False, "",
+                str(DRYRUN_DIR / SMALL_MESHES))).read_text())
+            if rec["status"] != "ok" or rec["n_params"] != n_params:
+                failed.append((arch, case, rec.get("site"),
+                               rec.get("error", rec.get("n_params"))))
+                row.append(f"{case} FAILED")
+            else:
+                row.append(f"{case} ok on {rec['mesh']} (temp "
+                           f"{rec['memory']['temp_size_in_bytes']} B)")
+        print(f"  small meshes {arch}: " + "; ".join(row), flush=True)
+    require(not failed, f"the small meshes failed under torch "
+            f"{torch.__version__}: {failed}")
 
 
 def dryrun_path(procs, card) -> None:
@@ -3199,6 +3424,10 @@ def dryrun_path(procs, card) -> None:
         text = (DRYRUN_DIR / f"{name}.log").read_text()
         print(f"dry run {name}: exit {rc}, {time.perf_counter() - t:.1f} s "
               f"after its start", flush=True)
+        if name == SMALL_MESHES:
+            small_meshes_records(SP, MD)
+            require(rc == 0, f"dry run {name} exited {rc}: {text[-3000:]}")
+            continue
         require(rc == 0, f"dry run {name} exited {rc}: {text[-3000:]}")
         rec = json.loads((DRYRUN_DIR / f"{name}.json").read_text())
         require(rec["status"] == "ok", f"dry run {name}: {rec}")
@@ -3224,7 +3453,8 @@ def dryrun_path(procs, card) -> None:
         print(f"  {DR.headline(rec)}; cross_pod={coll['cross_pod']} B "
               f"(the FedAvg's float32 all-reduce of a {shard}-element "
               f"parameter shard: {4 * shard} B) [{card}]", flush=True)
-        jax_rec = reference.get(name)
+        # the JAX records are train steps: the FL round has none
+        jax_rec = None if rec.get("fl_local_steps") else reference.get(name)
         if jax_rec is not None:
             temp = rec["memory"]["temp_size_in_bytes"]
             want = jax_rec["memory"]["temp_size_in_bytes"]
@@ -3332,7 +3562,7 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)}", flush=True)
+          f"device {torch.cuda.get_device_name(0)} [{card}]", flush=True)
     TRAIN.set_float32_precision()
 
     libs = (KM.LIBRARY, FA.LIBRARY)
@@ -3359,7 +3589,10 @@ def main() -> int:
                 f"instructions: {hmma}")
 
     cuda = torch.device("cuda")
-    dryruns = start_dryruns()       # host work only: read at the end
+    # host work only, at low priority: read near the end
+    dryruns = start_dryruns()
+    cpu_run = start_cpu_agreement()
+    fl_cpu = start_fl_cpu_round()
 
     # ---- kernel phases -------------------------------------------------
     phase("kernel phase: lloyd_step", t0)
@@ -3374,6 +3607,7 @@ def main() -> int:
     rng_card_vs_cpu()
 
     # ---- main path -----------------------------------------------------
+    robust = start_robust(card)     # host-bound: beside the next phases
     phase("paper path", t0)
     servers = record_servers(TRAIN)
     reset_counts(OPS)
@@ -3403,22 +3637,6 @@ def main() -> int:
     require(result["params_finite"], "non-finite params")
     require(all(math.isfinite(a) for a in result["test_acc"]),
             "non-finite accuracy")
-
-    # ---- agreement with the plain path on the CPU ----------------------
-    phase("agreement on the CPU", t0)
-    plain = TRAIN.main(MAIN_ARGS + ["--device", "cpu"])
-    require(result["selected"] == plain["selected"],
-            f"cuda and cpu runs selected different clients: "
-            f"{result['selected']} vs {plain['selected']}")
-    for key, tol in (("energy_std", 1e-5), ("mean_bid", 1e-5),
-                     ("vds_gap", 1e-5), ("test_loss", 1e-3),
-                     ("test_acc", 2e-3)):
-        require(all(math.isclose(a, b, rel_tol=tol, abs_tol=tol)
-                    for a, b in zip(result[key], plain[key])),
-                f"cuda and cpu {key} differ: {result[key]} vs {plain[key]}")
-    print(f"agreement: cuda and cpu select {result['selected']}; cpu "
-          f"test_loss={plain['test_loss']!r} wall_s={plain['wall_s']!r}",
-          flush=True)
 
     # ---- stage-1 assign path ------------------------------------------
     phase("stage-1 assign path", t0)
@@ -3455,9 +3673,6 @@ def main() -> int:
     phase("dynamics path", t0)
     dyn_launches = dynamics_path(OPS, TRAIN, obs, servers, card)
 
-    # ---- robust path ----------------------------------------------------
-    phase("robust path", t0)
-    robust_launches = robust_path(OPS, obs, card)
 
     # ---- transformer path -----------------------------------------------
     phase("transformer path", t0)
@@ -3475,6 +3690,10 @@ def main() -> int:
     # ---- serving path --------------------------------------------------
     phase("serving path", t0)
     flash_launches = serving_path(OPS, cuda)
+
+    # ---- robust path (its own process, started after the kernels) ------
+    phase("robust path", t0)
+    robust_launches = robust_result(robust)
 
     # ---- zoo serving path ----------------------------------------------
     phase("zoo serving path", t0)
@@ -3498,7 +3717,23 @@ def main() -> int:
 
     # ---- FL round step ---------------------------------------------------
     phase("fl round step", t0)
-    fl_round_path(cuda, card)
+    fl_round_path(cuda, card, fl_cpu)
+
+    # ---- agreement with the plain path on the CPU ----------------------
+    phase("agreement on the CPU", t0)
+    plain = cpu_agreement_result(cpu_run)
+    require(result["selected"] == plain["selected"],
+            f"cuda and cpu runs selected different clients: "
+            f"{result['selected']} vs {plain['selected']}")
+    for key, tol in (("energy_std", 1e-5), ("mean_bid", 1e-5),
+                     ("vds_gap", 1e-5), ("test_loss", 1e-3),
+                     ("test_acc", 2e-3)):
+        require(all(math.isclose(a, b, rel_tol=tol, abs_tol=tol)
+                    for a, b in zip(result[key], plain[key])),
+                f"cuda and cpu {key} differ: {result[key]} vs {plain[key]}")
+    print(f"agreement: cuda and cpu select {result['selected']}; cpu "
+          f"test_loss={plain['test_loss']!r} wall_s={plain['wall_s']!r}",
+          flush=True)
 
     # ---- dry run -----------------------------------------------------------
     phase("dry run", t0)

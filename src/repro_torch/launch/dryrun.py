@@ -472,6 +472,61 @@ def _combo_cmd(args, arch, shp, mp):
     return cmd
 
 
+# the tests' small meshes: each arch's smoke config (remat on, as the
+# production configs run) at B 4 x S 32 through the train, prefill and
+# decode steps on a 2 x 2 (data, model) mesh, and through the FL round
+# (2 local steps, one sequence a device) on 2 x 2 x 2 (pod, data, model)
+SMALL_CASES = ("train", "prefill", "decode", "fl_round")
+SMALL_B, SMALL_S, SMALL_FL_STEPS = 4, 32, 2
+
+
+def small_mesh_record(arch: str, case: str, device="cuda") -> Dict:
+    """One case of SMALL_CASES for ``arch``; a raise is recorded as
+    ``error`` with the innermost frame of the port (``site``)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch.mesh import fake_mesh
+    cfg = get_smoke_config(arch).replace(remat=True)
+    fl = case == "fl_round"
+    shape = ShapeConfig("small", SMALL_S, SMALL_B, "train" if fl else case)
+    try:
+        if fl:
+            mesh = fake_mesh((2, 2, 2), ("pod", "data", "model"), device)
+        else:
+            mesh = fake_mesh((2, 2), ("data", "model"), device)
+        rec = dryrun_one(arch, "small", fl, device=device, mesh=mesh,
+                         cfg=cfg, shape=shape,
+                         fl_local_steps=SMALL_FL_STEPS if fl else 0)
+    except Exception as e:  # noqa: BLE001
+        frames = traceback.extract_tb(e.__traceback__)
+        ours = [f for f in frames if "repro_torch" in f.filename]
+        site = ours[-1] if ours else frames[-1]
+        rec = {"arch": arch, "shape": "small", "status": "error",
+               "error": repr(e)[:2000],
+               "site": f"{site.filename.rsplit('src/', 1)[-1]}:"
+                       f"{site.lineno} ({site.name})",
+               "traceback": traceback.format_exc()[-4000:]}
+    rec["case"] = case
+    return rec
+
+
+def small_mesh_sweep(archs, device, results_dir) -> int:
+    """Every case of SMALL_CASES for each of ``archs``, one after
+    another in this process; the count of failed ones."""
+    failed = 0
+    for arch in archs:
+        for case in SMALL_CASES:
+            rec = small_mesh_record(arch, case, device)
+            with open(result_path(arch, f"small_{case}", False, "",
+                                  results_dir), "w") as f:
+                json.dump(rec, f, indent=1)
+            if rec["status"] != "ok":
+                failed += 1
+                obs.log(f"[{arch} x small {case}] FAILED at {rec['site']}: "
+                        f"{rec['error'][:300]}", always=True)
+    return failed
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None,
@@ -501,6 +556,9 @@ def main(argv=None):
                     help="device type of the fake tensors (default cuda; "
                          "cpu on a host without a GPU)")
     ap.add_argument("--results-dir", default=RESULTS_DIR)
+    ap.add_argument("--small-meshes", action="store_true",
+                    help="instead of the shapes: each arch's smoke config "
+                         "on the tests' small meshes (SMALL_CASES)")
     ap.add_argument("--quiet", action="store_true",
                     help="suppress per-combo progress lines")
     args = ap.parse_args(argv)
@@ -508,6 +566,11 @@ def main(argv=None):
 
     archs = ARCH_IDS if args.arch in (None, "all") \
         else args.arch.split(",")
+    if args.small_meshes:
+        failed = small_mesh_sweep(archs, args.device, args.results_dir)
+        obs.log(f"small meshes: {failed} of {len(archs) * len(SMALL_CASES)}"
+                " cases failed", always=True)
+        sys.exit(1 if failed else 0)
     shapes = ([s.name for s in INPUT_SHAPES]
               if args.shape in (None, "all") else [args.shape])
     meshes = [False, True] if args.both_meshes else [args.multi_pod]

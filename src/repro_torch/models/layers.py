@@ -210,13 +210,22 @@ class _Reduced(torch.autograd.Function):
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """table[tokens]; inside the dry run's mesh through ``Fn.embedding``,
     whose backward DTensor can place for a sharded table (the indexing
-    backward's ``index_put`` it cannot)."""
-    if is_distributed(table):
-        # reduce the vocab-sharded lookup's masked partial sums at once
-        out = _Reduced.apply(Fn.embedding(tokens, table))
-        return maybe_constrain(out, ("pod", "data"),
-                               *(None,) * (out.ndim - 1))
-    return table[tokens]
+    backward's ``index_put`` it cannot).  With the table's D split over
+    'data', as the batch is, DTensor's plan gathers every token and then
+    the whole (B, S, D) output to put the batch back on 'data': a
+    transient of twice the batch's embeddings a device.  So a lookup
+    that takes no gradient (prefill, decode) gathers the table over
+    'data' first (FSDP's gather on use).  A training step keeps the
+    plan: there the gathered table's gradient would be reduce-scattered,
+    the whole table where the vocab does not split over 'model'
+    (granite's 49,155 rows), more than the plan sends."""
+    if not is_distributed(table):
+        return table[tokens]
+    if not table.requires_grad:
+        table = maybe_constrain(table, "model", None)
+    # reduce the vocab-sharded lookup's masked partial sums at once
+    out = _Reduced.apply(Fn.embedding(tokens, table))
+    return maybe_constrain(out, ("pod", "data"), *(None,) * (out.ndim - 1))
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -291,8 +300,20 @@ def _expand_kv(k, num_heads):
 def naive_attention(q, k, v, *, causal: bool, window: int = 0
                     ) -> torch.Tensor:
     """Reference attention. q:(B,Sq,H,hd) k,v:(B,Sk,H,hd).  The plain
-    version of the kernel, ``ref.flash_attention_ref``, computes it."""
-    return KREF.flash_attention_ref(q, k, v, causal=causal, window=window)
+    version of the kernel, ``ref.flash_attention_ref``, computes it.
+    Inside the mesh each (batch, head) shard attends alone on its local
+    shards (batch over 'data', heads over 'model'), as the chunked path
+    does: the reference's products fold (B, H) into one batch dim, which
+    DTensor cannot do with both split (torch 2.11)."""
+    def attend(q, k, v):
+        return KREF.flash_attention_ref(q, k, v, causal=causal,
+                                        window=window)
+
+    if not is_distributed(q):
+        return attend(q, k, v)
+    q, k, v = (maybe_constrain(t, "data", None, "model", None)
+               for t in (q, k, v))
+    return on_local_shards(attend, q.placements, q, k, v)
 
 
 # ---------------- flash attention with a hand-written backward -----------

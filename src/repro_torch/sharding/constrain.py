@@ -107,10 +107,16 @@ class _Trip(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, hook, trips, fn, grad, *args):
-        if not grad:
+        # the shapes only: a reference would keep the inputs' storages
+        # (the loop's whole sequence) alive as long as the graph
+        ctx.like = [(a.shape, a.dtype, a.device) if a.requires_grad
+                    else None for a in args]
+        if not grad or torch._C._current_graph_task_id() != -1:
+            # no gradient, or remat's recompute inside a backward: the
+            # forward alone, with no graph (one left by a recompute
+            # outlives its block's backward)
             with hook(trips):
                 return fn(*args)
-        ctx.like = [a if a.requires_grad else None for a in args]
         args = [a.detach().requires_grad_(a.is_floating_point())
                 for a in args]
         # the trip's own graph keeps its saved tensors: under remat's
@@ -118,16 +124,16 @@ class _Trip(torch.autograd.Function):
         with torch.enable_grad(), hook(trips), \
                 torch.autograd.graph.saved_tensors_hooks(_same, _same):
             out = fn(*args)
-            if torch._C._current_graph_task_id() == -1:
-                torch.autograd.grad(
-                    out, [a for a in args if a.requires_grad],
-                    [torch.ones_like(o) for o in out], allow_unused=True)
+            torch.autograd.grad(
+                out, [a for a in args if a.requires_grad],
+                [torch.ones_like(o) for o in out], allow_unused=True)
         return tuple(o.detach() for o in out)
 
     @staticmethod
     def backward(ctx, *grads):
         return (None, None, None, None,
-                *(None if a is None else torch.zeros_like(a)
+                *(None if a is None else torch.zeros(a[0], dtype=a[1],
+                                                     device=a[2])
                   for a in ctx.like))
 
 

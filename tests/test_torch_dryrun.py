@@ -190,6 +190,7 @@ from repro_torch.launch.mesh import fake_mesh
 from repro_torch.models import moe as MOE
 import torch.distributed as dist
 arch, kind, over, patch = sys.argv[1], sys.argv[2], sys.argv[3], sys.argv[4]
+seq = int(sys.argv[5]) if len(sys.argv) > 5 else {S}
 kw = dict(remat=False)
 kw.update(json.loads(over))
 cfg = get_smoke_config(arch).replace(**kw)
@@ -198,9 +199,15 @@ if patch == "one_group":
 if patch == "every_step":
     import contextlib
     DR.tally_loops = lambda hook: contextlib.nullcontext()
+if patch == "qkv_gathered":
+    # the mLSTM's q, k and v whole over 'model'
+    from repro_torch.models import xlstm as X
+    mc = X.maybe_constrain
+    X.maybe_constrain = lambda t, *a: mc(
+        t, *(None if e == "model" else e for e in a))
 m = fake_mesh((2, 2), ("data", "model"), "cpu")
 rec = DR.dryrun_one(arch, "small", False, device="cpu", mesh=m, cfg=cfg,
-                    shape=ShapeConfig("small", {S}, {B}, kind))
+                    shape=ShapeConfig("small", seq, {B}, kind))
 dist.destroy_process_group()
 print("RECORD " + json.dumps(rec))
 """
@@ -217,14 +224,31 @@ ZOO_CASES = {
 }
 
 
+# xlstm's mLSTM with v's head_dim split over 'model' (as JAX's) against
+# q, k and v gathered there: (kind, overrides, patch, sequence length);
+# the split prefill is ZOO_CASES' xlstm_prefill.  The train step runs 128
+# tokens, where the mLSTM's chunk holds the peak (at 32 the sLSTM's does)
+XLSTM_SPLIT_CASES = {
+    "xlstm_train_128": ("train", {"remat": True}, "none", 128),
+    "xlstm_train_128_qkv_gathered": ("train", {"remat": True},
+                                     "qkv_gathered", 128),
+    "xlstm_prefill_qkv_gathered": ("prefill", {}, "qkv_gathered", S),
+}
+
+
 @pytest.fixture(scope="module")
 def zoo_records():
-    """Each case of ZOO_CASES in a process of its own, side by side."""
+    """Each case of ZOO_CASES and XLSTM_SPLIT_CASES in a process of its
+    own, side by side."""
+    cases = {k: (a, kind, over, patch, S)
+             for k, (a, kind, over, patch) in ZOO_CASES.items()}
+    cases.update({k: ("xlstm-1.3b", *c)
+                  for k, c in XLSTM_SPLIT_CASES.items()})
     procs = {k: subprocess.Popen(
         [sys.executable, "-c", CASE.format(S=S, B=B), a, kind,
-         json.dumps(over), patch], stdout=subprocess.PIPE,
+         json.dumps(over), patch, str(seq)], stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True, env=_env())
-        for k, (a, kind, over, patch) in ZOO_CASES.items()}
+        for k, (a, kind, over, patch, seq) in cases.items()}
     out = {}
     for k, p in procs.items():
         stdout, stderr = p.communicate(timeout=600)
@@ -305,3 +329,22 @@ def test_xlstm_train_counts_every_slstm_step(zoo_records):
     dh = cfg.d_model // h
     assert once["cost"]["flops"] - every["cost"]["flops"] == \
         4 * (B // 2) * h * 2 * dh * dh
+
+
+@pytest.mark.parametrize("kind,split,gathered", [
+    ("train", "xlstm_train_128", "xlstm_train_128_qkv_gathered"),
+    ("prefill", "xlstm_prefill", "xlstm_prefill_qkv_gathered")])
+def test_xlstm_head_dim_split_lowers_the_temp_bytes(zoo_records, kind, split,
+                                                     gathered):
+    """The mLSTM with v's head_dim split over 'model' (dh / 2 columns a
+    device: its state C and its output halved) against q, k and v
+    gathered there: lower peak bytes a device, the same parameter and
+    argument bytes, and fewer FLOPs (the products with v's columns
+    halved)."""
+    a, b = zoo_records[split], zoo_records[gathered]
+    assert a["status"] == b["status"] == "ok"
+    assert a["memory"]["temp_size_in_bytes"] < \
+        b["memory"]["temp_size_in_bytes"]
+    assert a["memory"]["argument_size_in_bytes"] == \
+        b["memory"]["argument_size_in_bytes"]
+    assert a["cost"]["flops"] < b["cost"]["flops"]

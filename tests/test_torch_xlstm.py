@@ -129,3 +129,154 @@ def test_decode_matches_full_sequence(kind):
         o, cache = tdec(pt, x[:, t:t + 1], cache, cfg_t)
         outs.append(o)
     _assert_rel(torch.cat(outs, 1).numpy(), full.numpy())
+
+
+# ----------------------------------------------------------------------
+# the mLSTM inside the mesh: v's head_dim split over 'model', as JAX's;
+# per-chunk recompute under remat
+# ----------------------------------------------------------------------
+
+MESH_RUN = """
+import json, torch
+torch.set_num_threads(1)
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from repro_torch.launch.mesh import fake_mesh
+from repro_torch.models import xlstm as X
+from repro_torch.sharding.constrain import use_mesh
+B, h, S, dh, chunk = 4, 4, 40, 32, 16
+g = torch.Generator().manual_seed(0)
+q, k, v, cot = (torch.randn(B, h, S, dh, generator=g) for _ in range(4))
+li = torch.randn(B, h, S, generator=g)
+lf = torch.nn.functional.logsigmoid(torch.randn(B, h, S, generator=g) + 3)
+ins = (q, k, v, li, lf)
+rows = slice(0, B // 2)
+
+def unsplit(cot):
+    leaves = [t.clone().requires_grad_(True) for t in ins]
+    out = X._mlstm_chunks(*leaves, chunk)
+    return out.detach(), torch.autograd.grad(out, leaves, cot)
+
+mesh = fake_mesh((2, 2), ("data", "model"), "cpu")
+REP, SPLIT = [Shard(0), Replicate()], [Shard(0), Shard(3)]
+
+def placed(t, pl, cols=None):
+    local = t[rows] if cols is None else t[rows][..., cols]
+    local = local.clone().requires_grad_(True)
+    return local, DTensor.from_local(local, mesh, pl, run_check=False,
+                                     shape=t.shape, stride=t.stride())
+
+res = {}
+want, _ = unsplit(cot)
+halves = (slice(0, dh // 2), slice(dh // 2, dh))
+with use_mesh(mesh):
+    # v given whole over 'model': the loop splits it, its output too
+    dts = [placed(t, REP)[1] for t in ins]
+    out = X._mlstm_loop(*dts, chunk, False)
+    res["placements"] = [p.dim if p.is_shard() else None
+                         for p in out.placements]
+    res["local_shape"] = list(out.to_local().shape)
+    # each 'model' shard of v's columns: its output columns and grads,
+    # q's, k's and the gates' a partial sum over the shards
+    parts = []
+    for cols in halves:
+        locs, dts = zip(*[placed(t, SPLIT, cols) if t is v else
+                          placed(t, REP) for t in ins])
+        for recompute in (False, True):
+            out = X._mlstm_loop(*dts, chunk, recompute)
+            c = cot[rows][..., cols]
+            grads = torch.autograd.grad(out.to_local(), locs, c)
+            parts.append((cols, recompute, out.to_local().detach(), grads))
+_, full = unsplit(cot)
+err = {"out": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0, "dli": 0.0, "dlf": 0.0}
+scale = {"out": want.abs().max().item()}
+scale.update({n: full[i][rows].abs().max().item()
+              for i, n in enumerate(("dq", "dk", "dv", "dli", "dlf"))})
+for recompute in (False, True):
+    summed = [0, 0, None, 0, 0]
+    for cols, rc, out, grads in parts:
+        if rc != recompute:
+            continue
+        err["out"] = max(err["out"], (out - want[rows][..., cols]).abs().max().item())
+        err["dv"] = max(err["dv"], (grads[2] - full[2][rows][..., cols]).abs().max().item())
+        for i in (0, 1, 3, 4):
+            summed[i] = summed[i] + grads[i]
+    for i, n in ((0, "dq"), (1, "dk"), (3, "dli"), (4, "dlf")):
+        err[n] = max(err[n], (summed[i] - full[i][rows]).abs().max().item())
+res["rel_err"] = {n: err[n] / scale[n] for n in err}
+res["recompute_bit_identical"] = all(
+    torch.equal(a[2], b[2]) and all(torch.equal(x, y) for x, y in zip(a[3], b[3]))
+    for a, b in zip(parts[0::2], parts[1::2]))
+dist.destroy_process_group()
+print("RESULT " + json.dumps(res))
+"""
+
+
+@pytest.fixture(scope="module")
+def mesh_result():
+    """MESH_RUN in a process of its own (the fake process group meets no
+    other test)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    env.pop("JAX_PLATFORMS", None)
+    p = subprocess.run([sys.executable, "-c", MESH_RUN], capture_output=True,
+                       text=True, env=env, timeout=300)
+    assert p.returncode == 0, p.stdout[-3000:] + p.stderr[-3000:]
+    line = next(l for l in p.stdout.splitlines() if l.startswith("RESULT "))
+    return json.loads(line[len("RESULT "):])
+
+
+def test_mlstm_on_the_mesh_splits_v_head_dim(mesh_result):
+    """On a 2 x 2 fake mesh the loop's output comes back split as v's
+    head_dim, over 'model' (JAX's ``maybe_constrain(v, 'data', None,
+    None, 'model')``): rows over 'data', dh / 2 = 16 columns a shard."""
+    assert mesh_result["placements"] == [0, 3]     # Shard(0), Shard(3)
+    assert mesh_result["local_shape"] == [2, 4, 40, 16]
+
+
+def test_mlstm_on_the_mesh_matches_the_unsplit_path(mesh_result):
+    """Each 'model' shard's output columns and v's gradient there are the
+    unsplit path's, and q's, k's and the gates' gradients summed over the
+    two shards (the partial sums DTensor reduces) are the unsplit
+    path's, within 1e-6 of the largest (another product shape may sum
+    in another order); with per-chunk recompute the same bits."""
+    for name, err in mesh_result["rel_err"].items():
+        assert err <= 1e-6, (name, err)
+    assert mesh_result["recompute_bit_identical"]
+
+
+GATES = ("wi", "wf", "bi", "bf")              # float32 in every config
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mlstm_per_chunk_recompute_is_bit_identical(dtype, monkeypatch):
+    """Under ``cfg.remat`` each chunk's step runs again in the backward
+    (a chunk step a chunk in the forward and another in the backward),
+    and the output and every gradient are the plain path's bit for bit."""
+    _, cfg_t = _cfgs()
+    _, pt = _weights("mlstm", 6)
+    dt = getattr(torch, dtype)
+    x = torch.tensor(_x(2, 45, 9)).to(dt)
+    cot = torch.tensor(_x(2, 45, 10)).to(dt)
+    step, calls = TX._mlstm_step, []
+    monkeypatch.setattr(TX, "_mlstm_step",
+                        lambda *a: calls.append(1) or step(*a))
+    got = {}
+    for remat in (False, True):
+        calls.clear()
+        p = {k: v.to(torch.float32 if k in GATES else dt)
+             .requires_grad_(True) for k, v in pt.items()}
+        xx = x.clone().requires_grad_(True)
+        out = TX.apply_mlstm(p, xx, cfg_t.replace(dtype=dtype, remat=remat),
+                             chunk=8)
+        out.backward(cot)
+        got[remat] = (out.detach(), xx.grad, [p[k].grad for k in sorted(p)])
+        assert len(calls) == (12 if remat else 6), (remat, len(calls))
+    a, b = got[False], got[True]
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert all(torch.equal(u, w) for u, w in zip(a[2], b[2]))
