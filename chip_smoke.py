@@ -226,8 +226,9 @@
 21. Dry run (last): ``python -m repro_torch.launch.dryrun`` at
    DRYRUN_COMBOS (qwen2-0.5b's train_4k and decode_32k on the 16 x 16
    mesh and train_4k's FL round with 4 local steps on 2 x 16 x 16;
-   granite-moe-3b-a800m's train_4k and xlstm-1.3b's train_4k and
-   prefill_32k on 16 x 16), fake tensors on cuda over a fake 256- or
+   granite-moe-3b-a800m's, starcoder2-3b's and whisper-tiny's train_4k
+   and xlstm-1.3b's train_4k and prefill_32k on 16 x 16), fake tensors
+   on cuda over a fake 256- or
    512-rank process group, each its own process (at low priority)
    started before the kernel phases and read here; then the port's
    roofline over the records.  Each record ``ok``, ``n_params`` the full
@@ -236,13 +237,14 @@
    exactly the FedAvg's float32 all-reduce of the device's parameter
    shard; where DRYRUN_REFERENCE (the JAX package's records, read as
    JSON) has the combo, the ratios to JAX's printed, and the temp bytes
-   of DRYRUN_TEMP_RATIO's combos within its factor of JAX's (granite's
-   4x, xlstm's 2x); each record's headline and roofline row printed.
-   One more process (SMALL_MESHES, started with them) runs every arch's
-   smoke config on the tests' small fake meshes under this host's torch
-   (``dryrun --small-meshes``: train, prefill and decode on 2 x 2, the
-   FL round on 2 x 2 x 2): every record ``ok`` with the smoke config's
-   parameter count.
+   of DRYRUN_TEMP_RATIO's combos within its factor of JAX's (qwen2's and
+   starcoder2's 1.5x, whisper's, granite's and xlstm's 2x); each
+   record's headline and roofline row printed.  One more process
+   (SMALL_MESHES, started with them) runs every arch's smoke config, and
+   the two variants whose heads (and vocab) are padded to 'model', on
+   the tests' small fake meshes under this host's torch (``dryrun
+   --small-meshes``: train, prefill and decode on 2 x 2, the FL round on
+   2 x 2 x 2): every record ``ok`` with the config's parameter count.
 
 It prints one JSON line with the kernels' numbers and, last, the JSON
 status line.  ``--profile`` adds a torch.profiler pass before them:
@@ -772,21 +774,29 @@ FL_COHORTS, FL_LOCAL_STEPS, FL_TOKENS, FL_CPU_LAYERS = 2, 2, 1024, 2
 FL_TOL, FL_AGG_TOL = 1e-4, 1e-6
 FL_WEIGHTS = (3.0, 1.0)
 # the dry run's combos: (arch, shape, multi_pod, fl_local_steps);
-# qwen2-0.5b's three, and the MoE with token groups where its 40 experts
-# do not divide 'model' and xlstm's sLSTM at 32k tokens
+# qwen2-0.5b's three, the MoE with token groups where its 40 experts
+# do not divide 'model', xlstm's sLSTM at 32k tokens, and heads padded
+# to 'model' (starcoder2's 24, GQA 24:2; whisper's 6 and its vocab)
 DRYRUN_COMBOS = ((ARCH, "train_4k", False, 0), (ARCH, "decode_32k", False, 0),
                  (ARCH, "train_4k", True, 4),
                  ("granite-moe-3b-a800m", "train_4k", False, 0),
                  ("xlstm-1.3b", "train_4k", False, 0),
-                 ("xlstm-1.3b", "prefill_32k", False, 0))
+                 ("xlstm-1.3b", "prefill_32k", False, 0),
+                 ("starcoder2-3b", "train_4k", False, 0),
+                 ("whisper-tiny", "train_4k", False, 0))
 DRYRUN_DIR = ROOT / "build" / "chip_smoke" / "dryrun"
 DRYRUN_TIMEOUT_S = 900
 # the JAX package's dry-run records (tools/record_dryrun_reference.py):
 # each port record's ratios to the file's printed where it has the
 # combo, and the temp bytes of those named here held within the factor
-# of JAX's (DRYRUN_TEMP_RATIO): the MoE's within 4x, xlstm's within 2x
+# of JAX's (DRYRUN_TEMP_RATIO): qwen2's and starcoder2's within 1.5x
+# (heads padded to 'model'), whisper's (heads and vocab padded), the
+# MoE's and xlstm's within 2x
 DRYRUN_REFERENCE = ROOT / "tools" / "dryrun_jax_reference.json"
-DRYRUN_TEMP_RATIO = {"granite-moe-3b-a800m__train_4k__pod1": 4.0,
+DRYRUN_TEMP_RATIO = {f"{ARCH}__train_4k__pod1": 1.5,
+                     "starcoder2-3b__train_4k__pod1": 1.5,
+                     "whisper-tiny__train_4k__pod1": 2.0,
+                     "granite-moe-3b-a800m__train_4k__pod1": 2.0,
                      "xlstm-1.3b__train_4k__pod1": 2.0,
                      "xlstm-1.3b__prefill_32k__pod1": 2.0}
 # the tests' small meshes under this host's torch: every arch's smoke
@@ -3381,12 +3391,11 @@ def _start_dryrun(name, cmd, env):
 
 def small_meshes_records(SP, MD) -> None:
     """Hold the small-mesh sweep's records: each ``ok`` with its smoke
-    config's parameter count."""
-    from repro_torch.configs.registry import ARCH_IDS, get_smoke_config
+    config's parameter count (the padded variants' included)."""
     from repro_torch.launch import dryrun as DR
     failed = []
-    for arch in ARCH_IDS:
-        flat = MD.flatten_params(SP.params_shape(get_smoke_config(arch)))
+    for arch in DR.SMALL_ARCHS:
+        flat = MD.flatten_params(SP.params_shape(DR.small_config(arch)))
         n_params = sum(v.numel() for v in flat.values())
         row = []
         for case in DR.SMALL_CASES:

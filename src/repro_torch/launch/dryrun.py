@@ -478,15 +478,32 @@ def _combo_cmd(args, arch, shp, mp):
 # (2 local steps, one sequence a device) on 2 x 2 x 2 (pod, data, model)
 SMALL_CASES = ("train", "prefill", "decode", "fl_round")
 SMALL_B, SMALL_S, SMALL_FL_STEPS = 4, 32, 2
+# two more smoke configs whose heads the 2-way 'model' axis does not
+# divide (and whisper's vocab too): the heads and vocab padded to it
+SMALL_VARIANTS = {
+    "qwen2-0.5b-3h": ("qwen2-0.5b", {"num_heads": 3, "num_kv_heads": 1,
+                                     "d_model": 96}),
+    "whisper-tiny-3h": ("whisper-tiny", {"num_heads": 3, "num_kv_heads": 3,
+                                         "d_model": 96, "vocab_size": 255}),
+}
+SMALL_ARCHS = (*ARCH_IDS, *SMALL_VARIANTS)
+
+
+def small_config(name: str):
+    """The small meshes' config of ``name`` (SMALL_ARCHS): its arch's
+    smoke config, remat on, with a SMALL_VARIANTS entry's overrides."""
+    from repro_torch.configs.registry import get_smoke_config
+    arch, over = SMALL_VARIANTS.get(name, (name, {}))
+    return get_smoke_config(arch).replace(remat=True, **over)
 
 
 def small_mesh_record(arch: str, case: str, device="cuda") -> Dict:
-    """One case of SMALL_CASES for ``arch``; a raise is recorded as
-    ``error`` with the innermost frame of the port (``site``)."""
+    """One case of SMALL_CASES for ``arch`` (one of SMALL_ARCHS); a raise
+    is recorded as ``error`` with the innermost frame of the port
+    (``site``)."""
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.configs.registry import get_smoke_config
     from repro_torch.launch.mesh import fake_mesh
-    cfg = get_smoke_config(arch).replace(remat=True)
+    cfg = small_config(arch)
     fl = case == "fl_round"
     shape = ShapeConfig("small", SMALL_S, SMALL_B, "train" if fl else case)
     try:
@@ -558,7 +575,8 @@ def main(argv=None):
     ap.add_argument("--results-dir", default=RESULTS_DIR)
     ap.add_argument("--small-meshes", action="store_true",
                     help="instead of the shapes: each arch's smoke config "
-                         "on the tests' small meshes (SMALL_CASES)")
+                         "(and SMALL_VARIANTS') on the tests' small meshes "
+                         "(SMALL_CASES)")
     ap.add_argument("--quiet", action="store_true",
                     help="suppress per-combo progress lines")
     args = ap.parse_args(argv)
@@ -567,6 +585,7 @@ def main(argv=None):
     archs = ARCH_IDS if args.arch in (None, "all") \
         else args.arch.split(",")
     if args.small_meshes:
+        archs = SMALL_ARCHS if args.arch in (None, "all") else archs
         failed = small_mesh_sweep(archs, args.device, args.results_dir)
         obs.log(f"small meshes: {failed} of {len(archs) * len(SMALL_CASES)}"
                 " cases failed", always=True)

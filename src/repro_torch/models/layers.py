@@ -59,6 +59,7 @@ from repro_torch.kernels import ref as KREF
 from repro_torch.sharding.constrain import (current_mesh, gather_inner,
                                            is_distributed, maybe_constrain,
                                            merge_last, on_local_shards,
+                                           pad_split, padded_to_model,
                                            split_last)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -167,6 +168,23 @@ def _gathered(w, cfg, *spec):
     return maybe_constrain(w, *spec)
 
 
+def _foldable(x):
+    """DTensor ``x`` (..., F) (inside an autograd Function), its local
+    shard copied contiguous where the shard's leading dims do not merge
+    as a view (a gradient in the attention's transposed layout at one
+    head a rank): DTensor folds them with a view of the local shard, and
+    takes the DTensor for contiguous by its global strides."""
+    from torch.distributed.tensor import DTensor
+    local = x.to_local()
+    try:
+        local.view(-1, local.shape[-1])
+    except (RuntimeError, ValueError):
+        return DTensor.from_local(local.contiguous(), x.device_mesh,
+                                  x.placements, run_check=False,
+                                  shape=x.shape, stride=x.stride())
+    return x
+
+
 class _MeshMatmul(torch.autograd.Function):
     """x (..., D) @ w (D, F) on DTensors inside the dry run's mesh, with
     the inner dims of x and of the output gradient gathered before each
@@ -175,14 +193,14 @@ class _MeshMatmul(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w):
-        x = gather_inner(x)
+        x = _foldable(gather_inner(x))
         ctx.save_for_backward(x, w)
         return x @ w
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        g = gather_inner(g)
+        g = _foldable(gather_inner(g))
         gw = x.reshape(-1, x.shape[-1]).transpose(0, 1) \
             @ g.reshape(-1, g.shape[-1])
         return g @ w.transpose(-1, -2), gw
@@ -211,18 +229,16 @@ def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """table[tokens]; inside the dry run's mesh through ``Fn.embedding``,
     whose backward DTensor can place for a sharded table (the indexing
     backward's ``index_put`` it cannot).  With the table's D split over
-    'data', as the batch is, DTensor's plan gathers every token and then
-    the whole (B, S, D) output to put the batch back on 'data': a
-    transient of twice the batch's embeddings a device.  So a lookup
-    that takes no gradient (prefill, decode) gathers the table over
-    'data' first (FSDP's gather on use).  A training step keeps the
-    plan: there the gathered table's gradient would be reduce-scattered,
-    the whole table where the vocab does not split over 'model'
-    (granite's 49,155 rows), more than the plan sends."""
+    'data', as the batch is, DTensor's plan would gather every token and
+    then the whole (B, S, D) output to put the batch back on 'data': a
+    transient of twice the batch's embeddings a device.  So the table is
+    gathered over 'data' first (FSDP's gather on use), in a training step
+    too, where its gradient is reduce-scattered back to the table's
+    placements: the whole table where the vocab does not split over
+    'model' (granite's 49,155 rows)."""
     if not is_distributed(table):
         return table[tokens]
-    if not table.requires_grad:
-        table = maybe_constrain(table, "model", None)
+    table = maybe_constrain(table, "model", None)
     # reduce the vocab-sharded lookup's masked partial sums at once
     out = _Reduced.apply(Fn.embedding(tokens, table))
     return maybe_constrain(out, ("pod", "data"), *(None,) * (out.ndim - 1))
@@ -277,12 +293,63 @@ def _proj(x, w, b):
     return matmul(x, w) if b is None else matmul(x, w) + b
 
 
-def _qkv(p, x, cfg):
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+def _padded_heads(cfg, x) -> int:
+    """The query heads padded to the dry run's 'model' axis (GSPMD's
+    padding of an uneven split) where ``x`` is a DTensor inside the mesh
+    and the axis does not divide them, else 0."""
+    if not is_distributed(x):
+        return 0
+    hp = padded_to_model(cfg.num_heads)
+    return 0 if hp == cfg.num_heads else hp
+
+
+def _padded_proj(x, w, b, cfg, hp, source=None, gather=True):
+    """x @ w (+ b) with w's output heads padded to ``hp`` and split over
+    'model' (``pad_split``): (..., hp * hd), split by whole heads, the
+    padded heads zero.  ``source`` maps query head j to the weight's head
+    (a KV head for k and v)."""
+    h, hd = cfg.num_heads, cfg.resolved_head_dim
+    w = pad_split(w, -1, hd, h, hp, source)
+    if gather:
+        w = _gathered(w, cfg, None, "model")
+    if b is not None:
+        b = pad_split(b, 0, hd, h, hp, source)
+    return _proj(x, w, b)
+
+
+def _q(p, x, cfg):
+    """q (B, S, heads, hd); on a mesh whose 'model' axis does not divide
+    the heads, padded to it (:func:`_padded_heads`)."""
+    h, hd = cfg.num_heads, cfg.resolved_head_dim
+    hp = _padded_heads(cfg, x)
+    if hp:
+        return split_last(_padded_proj(x, p["wq"], p.get("bq"), cfg, hp),
+                          hp, hd)
     q = _proj(x, _gathered(p["wq"], cfg, None, "model"), p.get("bq"))
+    return split_last(q, h, hd)
+
+
+def kv_proj(p, x, cfg):
+    """k and v (B, S, KV, hd) projected from x.  On a mesh whose 'model'
+    axis does not divide the query heads they come padded as q is, each
+    query head's KV head in its place (:func:`_expand_kv`'s map): the
+    rank's own heads only, where XLA pads the expanded K/V."""
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    hp = _padded_heads(cfg, x)
+    if hp:
+        rep = _kv_rep(cfg.num_heads, kv)
+        return tuple(split_last(_padded_proj(
+            x, p[w], p.get(b), cfg, hp, lambda j: j // rep), hp, hd)
+            for w, b in (("wk", "bk"), ("wv", "bv")))
     k = _proj(x, _gathered(p["wk"], cfg, None, "model"), p.get("bk"))
     v = _proj(x, _gathered(p["wv"], cfg, None, "model"), p.get("bv"))
-    return split_last(q, h, hd), split_last(k, kv, hd), split_last(v, kv, hd)
+    return split_last(k, kv, hd), split_last(v, kv, hd)
+
+
+def _kv_rep(num_heads, kv):
+    """Query heads a KV head serves (the last KV head fewer where KV does
+    not divide the heads)."""
+    return num_heads // kv if num_heads % kv == 0 else -(-num_heads // kv)
 
 
 def _expand_kv(k, num_heads):
@@ -292,7 +359,7 @@ def _expand_kv(k, num_heads):
     ``repeat_interleave`` would do the same but waits on the device for
     its output size."""
     B, S, KV, hd = k.shape
-    rep = num_heads // KV if num_heads % KV == 0 else -(-num_heads // KV)
+    rep = _kv_rep(num_heads, KV)
     k = k[:, :, :, None].expand(B, S, KV, rep, hd).reshape(B, S, KV * rep, hd)
     return k[:, :, :num_heads]
 
@@ -491,21 +558,27 @@ def attention_train(p, x, cfg, *, causal: bool = True,
                     positions: Optional[torch.Tensor] = None,
                     kv_override=None):
     """Full-sequence attention (train / prefill).  ``kv_override``
-    supplies external (B, Sk, KV, hd) K/V (cross-attention): q, k and v
-    are still projected from x, then k and v are replaced, and RoPE is
-    not applied."""
+    supplies external (B, Sk, KV, hd) K/V (cross-attention,
+    :func:`kv_proj` of the encoder output): q is projected from x and
+    RoPE is not applied (the K/V projections of x, which JAX computes
+    and XLA drops, are not made).  On a mesh whose 'model' axis does not
+    divide the heads, q, k and v come padded to it, split by whole
+    heads, and ``wo`` takes zero rows for the padded heads."""
     B, S, _ = x.shape
     h, hd = cfg.num_heads, cfg.resolved_head_dim
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
-    q, k, v = _qkv(p, x, cfg)
+    q = _q(p, x, cfg)
     if kv_override is not None:
         k, v = kv_override
-    elif cfg.rope_theta > 0:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    k = _expand_kv(k, h)
-    v = _expand_kv(v, h)
+    else:
+        k, v = kv_proj(p, x, cfg)
+        if cfg.rope_theta > 0:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+    if q.shape[2] == h:     # else k and v come padded as q, expanded
+        k = _expand_kv(k, h)
+        v = _expand_kv(v, h)
     win = cfg.sliding_window
     if cfg.attn_impl == "naive" or S <= 1024:
         o = naive_attention(q, k, v, causal=causal, window=win)
@@ -513,7 +586,18 @@ def attention_train(p, x, cfg, *, causal: bool = True,
         o = KOPS.flash_attention(q, k, v, causal=causal, window=win)
     else:
         o = chunked_attention(q, k, v, causal=causal, window=win)
-    return matmul(merge_last(o), _gathered(p["wo"], cfg, "model", None))
+    return matmul(merge_last(o), _gathered(_wo(p, o, cfg), cfg, "model",
+                                           None))
+
+
+def _wo(p, o, cfg):
+    """``wo`` with zero rows for the padded heads of ``o`` (heads at dim
+    2), split over 'model' as ``o``'s heads are; ``wo`` itself
+    unpadded."""
+    h, hd = cfg.num_heads, cfg.resolved_head_dim
+    if o.shape[2] == h:
+        return p["wo"]
+    return pad_split(p["wo"], 0, hd, h, o.shape[2])
 
 
 # ---------------- decode (single new token against a KV cache) -----------
@@ -580,7 +664,12 @@ def attention_decode(p, x, cache, pos, cfg, *, cross: bool = False,
     B = x.shape[0]
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     pos = int(pos)
-    q = split_last(_proj(x, p["wq"], p.get("bq")), h, hd)
+    hp = _padded_heads(cfg, x)
+    if hp:
+        q = split_last(_padded_proj(x, p["wq"], p.get("bq"), cfg, hp,
+                                    gather=False), hp, hd)
+    else:
+        q = split_last(_proj(x, p["wq"], p.get("bq")), h, hd)
     if not cross:
         k_new = split_last(_proj(x, p["wk"], p.get("bk")), kv, hd)
         v_new = split_last(_proj(x, p["wv"], p.get("bv")), kv, hd)
@@ -605,6 +694,11 @@ def attention_decode(p, x, cache, pos, cfg, *, cross: bool = False,
         valid = slot_idx <= pos
     kc = _expand_kv(kc, h)                              # (B, eff, H, hd)
     vc = _expand_kv(vc, h)
+    if hp:
+        # zero heads to q's padding (the heads dim is whole on every rank)
+        kc, vc = (on_local_shards(
+            lambda t: Fn.pad(t, (0, 0, 0, hp - h)), t.placements, t)
+            for t in (kc, vc))
 
     def attend(q, kc, vc):
         s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
@@ -620,7 +714,7 @@ def attention_decode(p, x, cache, pos, cfg, *, cross: bool = False,
         o = on_local_shards(attend, q.placements, q, kc, vc)
     else:
         o = attend(q, kc, vc)
-    return matmul(merge_last(o.to(x.dtype)), p["wo"]), cache
+    return matmul(merge_last(o.to(x.dtype)), _wo(p, o, cfg)), cache
 
 
 # ----------------------------------------------------------------------
@@ -650,18 +744,49 @@ def _logsumexp(logits):
     return (m + torch.log(torch.exp(logits - m).sum(-1, keepdim=True)))[..., 0]
 
 
+def _on_vocab_shards(fn, logits, *args):
+    """``fn(logits, iota, *args)``, ``iota`` the vocab index of each of
+    logits' columns; inside the mesh on each device's local shards, the
+    DTensor ``args`` (the labels) placed as the logits but for the vocab:
+    DTensor (torch 2.11) broadcasts a vocab-sharded iota against
+    batch-sharded labels over the whole batch."""
+    if not is_distributed(logits):
+        return fn(logits, torch.arange(logits.shape[-1],
+                                       device=logits.device), *args)
+    from torch.distributed.tensor import Replicate
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    width = logits.to_local().shape[-1]
+    split = [i for i, p in enumerate(logits.placements) if p.is_shard(last)]
+    assert len(split) <= 1, logits.placements
+    first = mesh.get_local_rank(split[0]) * width if split else 0
+    iota = torch.arange(first, first + width, device=logits.device)
+    pl = [Replicate() if p.is_shard(last) else p for p in logits.placements]
+    args = [a.redistribute(mesh, pl) for a in args]
+    return on_local_shards(lambda t, *a: fn(t, iota, *a),
+                           logits.placements, logits, *args)
+
+
 def _softmax_minus_onehot(logits, idx):
     """softmax(logits) - onehot(idx) over the vocab (idx: (..., 1)); inside
-    the mesh from the sharded logsumexp and a vocab iota sharded as the
-    logits, so nothing is gathered."""
+    the mesh from the sharded logsumexp and each shard's own vocab
+    columns, so nothing is gathered."""
     if current_mesh() is None:
         return torch.softmax(logits, dim=-1) - torch.zeros_like(
             logits).scatter(-1, idx, 1.0)
     p = torch.exp(logits - _logsumexp(logits)[..., None])
-    iota = torch.arange(logits.shape[-1], device=idx.device)
-    iota = maybe_constrain(iota.reshape((1,) * (idx.ndim - 1) + (-1,)),
-                           *(None,) * (idx.ndim - 1), "model")
-    return p - (iota == idx).to(p.dtype)
+    return _on_vocab_shards(
+        lambda p, iota, idx: p - (iota == idx).to(p.dtype), p, idx)
+
+
+def _drop_padding(logits, vocab: int):
+    """logits with the vocab columns past ``vocab`` (the padding of the
+    vocab to the 'model' axis) at -inf, so that they take no part in the
+    logsumexp, the softmax or dW (a zero column would add e^0 to every
+    row's sum); ``logits`` itself where nothing is padded."""
+    if logits.shape[-1] == vocab:
+        return logits
+    return _on_vocab_shards(
+        lambda t, iota: torch.where(iota < vocab, t, float("-inf")), logits)
 
 
 class _ChunkedXent(torch.autograd.Function):
@@ -670,18 +795,20 @@ class _ChunkedXent(torch.autograd.Function):
     package's scan does; the backward recomputes each chunk's logits
     (``jax.checkpoint`` over the scan body in the JAX package):
     dlogits = (softmax - onehot) * mask * g / max(cnt, 1),
-    dx = dlogits @ w^T, dw = sum over chunks of x^T dlogits (summed in
-    float32, then cast to w's type)."""
+    dx = dlogits @ w^T, dw = sum over chunks of x^T dlogits, one (D, V)
+    product a chunk with the batch and the chunk contracted together
+    (summed in float32, then cast to w's type).  ``vocab`` is the real
+    vocab where w_head's columns are padded to the mesh's 'model' axis."""
 
     generate_vmap_rule = True
 
     @staticmethod
-    def forward(x, w, labels, mask, chunk):
+    def forward(x, w, labels, mask, chunk, vocab):
         tot = torch.zeros((), device=x.device)
         cnt = torch.zeros((), device=x.device)
         for xc, lc, mc in _xent_chunks(x, labels, mask, chunk):
-            logits = maybe_constrain((xc @ w).float(),       # (B, c, V)
-                                     "data", None, "model")
+            logits = _drop_padding(maybe_constrain(
+                (xc @ w).float(), "data", None, "model"), vocab)  # (B, c, V)
             lse = _logsumexp(logits)
             # the vocab-sharded gather is a masked partial in the dry
             # run's mesh: reduce it before dropping the index dim
@@ -693,24 +820,26 @@ class _ChunkedXent(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        x, w, labels, mask, chunk = inputs
+        x, w, labels, mask, chunk, vocab = inputs
         ctx.save_for_backward(x, w, labels, mask)
-        ctx.chunk = chunk
+        ctx.chunk, ctx.vocab = chunk, vocab
 
     @staticmethod
     def backward(ctx, g):
         x, w, labels, mask = ctx.saved_tensors
         scale = g / torch.clamp(mask.float().sum(), min=1.0)
-        dxs, dw = [], torch.zeros_like(w, dtype=torch.float32,
-                                       memory_format=torch.contiguous_format)
+        dxs, dw = [], None
         for xc, lc, mc in _xent_chunks(x, labels, mask, ctx.chunk):
-            logits = maybe_constrain((xc @ w).float(), "data", None, "model")
+            logits = _drop_padding(maybe_constrain(
+                (xc @ w).float(), "data", None, "model"), ctx.vocab)
             dl = _softmax_minus_onehot(logits, lc[..., None].long())
             dl = (dl * (mc * scale)[..., None]).to(x.dtype)
             dxs.append(dl @ w.transpose(-1, -2))
-            dw = dw + (xc.transpose(-1, -2) @ dl).float()
+            part = (xc.reshape(-1, xc.shape[-1]).transpose(0, 1)
+                    @ dl.reshape(-1, dl.shape[-1])).float()
+            dw = part if dw is None else dw + part
         dx = torch.cat(dxs, dim=1)[:, :x.shape[1]]
-        return dx, dw.to(w.dtype), None, None, None
+        return dx, dw.to(w.dtype), None, None, None, None
 
 
 def chunked_softmax_xent(logits_fn, x_final, w_head, labels, mask,
@@ -718,11 +847,18 @@ def chunked_softmax_xent(logits_fn, x_final, w_head, labels, mask,
     """Cross-entropy with the vocab projection fused per sequence chunk,
     so the (B, S, V) logits are never held (``logits_fn`` is unused, as
     in the JAX package).  x_final: (B, S, D) final hidden states; w_head:
-    (D, V); labels, mask: (B, S)."""
+    (D, V); labels, mask: (B, S).  Inside the mesh a vocab that the
+    'model' axis does not divide is padded to it with zero columns
+    (``pad_split``), which the loss drops, as GSPMD pads the logits'
+    split."""
     x_final = maybe_constrain(x_final, "data", None, None)
+    vocab = w_head.shape[-1]
+    vp = padded_to_model(vocab)
+    if vp != vocab and is_distributed(x_final):
+        w_head = pad_split(w_head, 1, 1, vocab, vp)
     # GSPMD derives the head's gather over 'data' from the logits
     # constraint; DTensor plans one op at a time, so it is asked for (one
     # all-gather of D x V/16 a step, not the logits reduced per chunk)
     w_head = maybe_constrain(w_head, None, "model")
     return _ChunkedXent.apply(x_final, w_head, labels, mask,
-                              min(chunk, x_final.shape[1]))
+                              min(chunk, x_final.shape[1]), vocab)

@@ -65,7 +65,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
 from repro_torch.models import xlstm as X
-from repro_torch.sharding.constrain import maybe_constrain, split_last
+from repro_torch.sharding.constrain import maybe_constrain
 
 
 # ----------------------------------------------------------------------
@@ -221,11 +221,8 @@ def _cross(bp, x, cfg: ModelConfig, enc_out):
     """x + the cross-attention sublayer over the encoder output."""
     h = L.apply_norm(bp["ln_cross"], x, cfg.norm_eps)
     c = bp["cross"]
-    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    k = split_last(L._proj(enc_out, c["wk"], c.get("bk")), kv, hd)
-    v = split_last(L._proj(enc_out, c["wv"], c.get("bv")), kv, hd)
     return x + L.attention_train(c, h, cfg, causal=False,
-                                 kv_override=(k, v))
+                                 kv_override=L.kv_proj(c, enc_out, cfg))
 
 
 def _block_out(cfg: ModelConfig, t):

@@ -229,6 +229,59 @@ class _Heads(torch.autograd.Function):
                 None, None, None)
 
 
+def padded_to_model(n: int) -> int:
+    """``n`` rounded up to a multiple of the ambient mesh's 'model' axis,
+    as GSPMD pads an uneven split of an intermediate (qwen2's 14 heads
+    to 16); ``n`` itself outside the mesh."""
+    mesh = current_mesh()
+    if mesh is None or "model" not in mesh.mesh_dim_names \
+            or "model" in _STATE.forbidden:
+        return n
+    m = mesh.size(mesh.mesh_dim_names.index("model"))
+    return -(-n // m) * m
+
+
+def pad_split(w, dim: int, unit: int, real: int, padded: int,
+              source=None):
+    """``w``'s dim ``dim``, taken as units of ``unit`` elements (heads of
+    head_dim columns, or vocab columns), rebuilt as ``padded`` units split
+    over 'model', ``padded / n`` whole units a rank: unit j < ``real`` is
+    ``w``'s unit ``source(j)`` (j itself by default), the rest zeros.
+    GSPMD's padding of an uneven split, made where the split is: a
+    product with the padded weight gives its output already split by
+    whole units.  Each rank builds only its own units from ``w`` gathered
+    over 'model'; the gradient goes back to its sources as a partial sum
+    over 'model', reduced to ``w``'s placements.  ``w``: a DTensor inside
+    the mesh."""
+    from torch.distributed.tensor import Shard
+    mesh = w.device_mesh
+    md = mesh.mesh_dim_names.index("model")
+    per = padded // mesh.size(md)
+    first = mesh.get_local_rank(md) * per
+    mine = [source(j) if source else j
+            for j in range(first, min(first + per, real))]
+    dim %= w.ndim
+    w = _gather(w, lambda i, p: i == md)
+    assert not any(p.is_shard(dim) for p in w.placements), w.placements
+    pl = [Shard(dim) if i == md else p for i, p in enumerate(w.placements)]
+
+    def block(t):
+        units = t.unflatten(dim, (t.shape[dim] // unit, unit))
+        start = mine[0] if mine else 0
+        if mine == list(range(start, start + len(mine))):
+            got = units.narrow(dim, start, len(mine))       # a view
+        else:
+            got = units.index_select(dim, torch.tensor(mine,
+                                                       device=t.device))
+        if len(mine) < per:
+            shape = list(units.shape)
+            shape[dim] = per - len(mine)
+            got = torch.cat([got, units.new_zeros(shape)], dim)
+        return got.flatten(dim, dim + 1)
+
+    return on_local_shards(block, pl, w)
+
+
 def split_last(x, n: int, d: int):
     """x (..., n*d) -> (..., n, d)."""
     if current_mesh() is None:

@@ -348,3 +348,116 @@ def test_xlstm_head_dim_split_lowers_the_temp_bytes(zoo_records, kind, split,
     assert a["memory"]["argument_size_in_bytes"] == \
         b["memory"]["argument_size_in_bytes"]
     assert a["cost"]["flops"] < b["cost"]["flops"]
+
+
+# ----------------------------------------------------------------------
+# heads and vocab that the 'model' axis does not divide, padded to it
+# ----------------------------------------------------------------------
+
+PADDED = """
+import json, sys, torch
+torch.set_num_threads(1)
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun as DR
+from repro_torch.launch.mesh import fake_mesh
+from repro_torch.models import layers as L
+import torch.distributed as dist
+name, kind = sys.argv[1], sys.argv[2]
+seq, B = int(sys.argv[3]), int(sys.argv[4])
+cfg = DR.small_config(name).replace(remat=False)
+seen = {"heads": [], "vocab": []}
+
+
+def local(t):
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def heads_of(fn, dim=2):
+    def wrapped(*a, **k):
+        out = fn(*a, **k)
+        for t in out if isinstance(out, tuple) else (out,):
+            seen["heads"].append((fn.__name__, local(t).shape[dim]))
+        return out
+    return wrapped
+
+
+L._q, L.kv_proj, L.apply_rope = (heads_of(f) for f in
+                                 (L._q, L.kv_proj, L.apply_rope))
+shards = L.on_local_shards
+
+
+def on_shards(fn, placements, *args):
+    if len(args) == 3:          # an attention's (q, k, v)
+        dim = 1 if fn.__name__ == "flash" else 2
+        seen["heads"] += [(fn.__name__, local(a).shape[dim]) for a in args]
+    return shards(fn, placements, *args)
+
+
+L.on_local_shards = on_shards
+drop = L._drop_padding
+
+
+def dropped(logits, vocab):
+    seen["vocab"].append(local(logits).shape[-1])
+    return drop(logits, vocab)
+
+
+L._drop_padding = dropped
+m = fake_mesh((2, 4), ("data", "model"), "cpu")
+rec = DR.dryrun_one(name, "small", False, device="cpu", mesh=m, cfg=cfg,
+                    shape=ShapeConfig("small", seq, B, kind))
+dist.destroy_process_group()
+rec["seen"] = seen
+print("RECORD " + json.dumps(rec))
+"""
+# (small-mesh variant, step kind, sequence length): the naive attention
+# at S 32, the chunked one at 2,048, and the decode step
+PADDED_CASES = {
+    "qwen2_train": ("qwen2-0.5b-3h", "train", S),
+    "qwen2_train_2k": ("qwen2-0.5b-3h", "train", 2048),
+    "qwen2_decode": ("qwen2-0.5b-3h", "decode", S),
+    "whisper_train": ("whisper-tiny-3h", "train", S),
+    "whisper_prefill": ("whisper-tiny-3h", "prefill", S),
+    "whisper_decode": ("whisper-tiny-3h", "decode", S),
+}
+
+
+@pytest.fixture(scope="module")
+def padded_records():
+    """Each case of PADDED_CASES in a process of its own, side by side."""
+    procs = {k: subprocess.Popen(
+        [sys.executable, "-c", PADDED, name, kind, str(seq), str(B)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=_env()) for k, (name, kind, seq) in PADDED_CASES.items()}
+    out = {}
+    for k, p in procs.items():
+        stdout, stderr = p.communicate(timeout=600)
+        assert p.returncode == 0, stdout[-3000:] + stderr[-3000:]
+        line = next(l for l in stdout.splitlines()
+                    if l.startswith("RECORD "))
+        out[k] = json.loads(line[len("RECORD "):])
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(PADDED_CASES))
+def test_padded_heads_hold_their_share_a_rank(padded_records, case):
+    """On a 2 x 4 (data, model) mesh, 3 heads (qwen2's smoke config at 3
+    heads, one KV head; whisper's at 3 with a 255-token vocab) pad to 4,
+    one a rank: q, k and v out of their products, through RoPE and into
+    the attention (naive, chunked, decode) hold ceil(3 / 4) = 1 head a
+    rank, never the 3 heads gathered; whisper's logits chunk holds 64 of
+    the 256 padded vocab columns.  The record is ``ok`` with JAX's
+    parameter count for the config: the padding stores nothing."""
+    from repro_torch.launch import dryrun as TDR
+    name, kind, _ = PADDED_CASES[case]
+    rec = padded_records[case]
+    assert rec["status"] == "ok"
+    arch, over = TDR.SMALL_VARIANTS[name]
+    cfg_j = JREG.get_smoke_config(arch).replace(**over)
+    assert rec["n_params"] == JRL._param_counts(cfg_j)[0]
+    seen = rec["seen"]
+    assert seen["heads"] and {h for _, h in seen["heads"]} == {1}, seen
+    if kind == "train":
+        assert {f for f, _ in seen["heads"]} >= {"_q", "kv_proj"}
+    if cfg_j.vocab_size == 255 and kind == "train":
+        assert set(seen["vocab"]) == {64}, seen["vocab"]

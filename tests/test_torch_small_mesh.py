@@ -1,5 +1,7 @@
 """The port's dry run (``launch/dryrun.py``) on the small fake meshes of
-the tests, for every arch of the registry: its smoke config (remat on)
+the tests, for every arch of the registry and the two variants whose
+heads (and whisper's vocab) the 2-way 'model' axis does not divide
+(``dryrun.SMALL_VARIANTS``, padded to it): its smoke config (remat on)
 at B 4 x S 32 through the train, prefill and decode steps on a 2 x 2
 (data, model) mesh and through the FL round (2 local steps) on a
 2 x 2 x 2 (pod, data, model) mesh (``dryrun.SMALL_CASES``).  Each arch
@@ -28,7 +30,6 @@ import pytest
 import torch
 
 from repro_torch.configs.base import ShapeConfig
-from repro_torch.configs.registry import ARCH_IDS, get_smoke_config
 from repro_torch.launch import dryrun as DR
 from repro_torch.launch import specs as SP
 from repro_torch.models import model as MD
@@ -54,11 +55,11 @@ def records():
              "--small-meshes", "--arch", arch, "--device", DEVICE,
              "--results-dir", out, "--quiet"], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True, env=env, cwd=ROOT)
-            for arch in ARCH_IDS}
+            for arch in DR.SMALL_ARCHS}
         logs = {arch: p.communicate(timeout=600)[0]
                 for arch, p in procs.items()}
         recs = {}
-        for arch in ARCH_IDS:
+        for arch in DR.SMALL_ARCHS:
             for case in DR.SMALL_CASES:
                 path = Path(DR.result_path(arch, f"small_{case}", False, "",
                                            out))
@@ -109,7 +110,7 @@ def _argument_bytes(cfg, case):
 
 
 @pytest.mark.parametrize("case", DR.SMALL_CASES)
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", DR.SMALL_ARCHS)
 def test_small_mesh_record_ok(records, arch, case):
     """The case runs ``ok`` on its mesh, with the smoke config's
     parameter count and the argument bytes of the port's specs; no
@@ -119,7 +120,7 @@ def test_small_mesh_record_ok(records, arch, case):
     rec = records[arch, case]
     assert rec["status"] == "ok", (rec.get("site"), rec.get("error"),
                                    rec.get("traceback"))
-    cfg = get_smoke_config(arch).replace(remat=True)
+    cfg = DR.small_config(arch)
     flat = MD.flatten_params(SP.params_shape(cfg))
     assert rec["n_params"] == sum(v.numel() for v in flat.values())
     assert rec["n_devices"] == (8 if case == "fl_round" else 4)

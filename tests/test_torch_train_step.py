@@ -224,6 +224,36 @@ def test_chunked_xent_value_and_grads_match_jax(case):
     np.testing.assert_allclose(t_val, direct, rtol=RTOL)
 
 
+@pytest.mark.parametrize("arch", TREG.ARCH_IDS)
+def test_chunked_xent_dw_matches_jax_on_smoke_configs(arch):
+    """The head's gradient, one (D, V) product a chunk with the batch and
+    the chunk contracted together (no per-sequence (B, D, V) copies),
+    against ``jax.grad`` of the JAX package's loss at each smoke config's
+    width (D, V), a ragged last chunk and a mask, with the final hidden
+    states and the head weight JAX's (tied archs: the embedding's
+    transpose); dx too."""
+    cfg = TREG.get_smoke_config(arch)
+    p = _tree(arch)
+    w = (p["tok_embed"].T if cfg.tie_embeddings else p["lm_head"]
+         ).astype(np.float32)
+    B, S, chunk = 3, 70, 16
+    rs = np.random.default_rng(len(arch))
+    x = rs.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    lab = rs.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    mask = (rs.random((B, S)) > 0.2).astype(np.float32)
+    j_grads = jax.jit(jax.grad(
+        lambda x, w: JL.chunked_softmax_xent(None, x, w, lab, mask,
+                                             chunk=chunk),
+        argnums=(0, 1)))(x, w)
+    tx, tw = (torch.tensor(a, requires_grad=True) for a in (x, w))
+    t_grads = torch.autograd.grad(TL.chunked_softmax_xent(
+        None, tx, tw, torch.tensor(lab), torch.tensor(mask), chunk=chunk),
+        (tx, tw))
+    for name, a, b in zip(("dx", "dw"), t_grads, j_grads):
+        np.testing.assert_allclose(_np(a), np.asarray(b), rtol=RTOL,
+                                   atol=ATOL, err_msg=name)
+
+
 def test_chunked_xent_vmaps_over_the_weight():
     rs = np.random.default_rng(1)
     x = torch.tensor(rs.standard_normal((2, 19, 8)), dtype=torch.float32)

@@ -3,10 +3,13 @@ chip_smoke.py and PERF.md hold against it.
 
   PYTHONPATH=src JAX_PLATFORMS=cpu python tools/record_dryrun_reference.py
 
-For granite-moe-3b-a800m, qwen3-moe-235b-a22b and jamba-v0.1-52b at
-train_4k, and qwen2-0.5b and xlstm-1.3b at train_4k and prefill_32k
-(qwen2's 14 heads do not divide the 16-way 'model' axis, which XLA pads
-and the port leaves whole), each on the one-pod
+For granite-moe-3b-a800m, qwen3-moe-235b-a22b, jamba-v0.1-52b,
+starcoder2-3b, qwen1.5-4b and qwen1.5-32b at train_4k, and qwen2-0.5b,
+xlstm-1.3b, whisper-tiny and granite-moe-3b-a800m at train_4k and
+prefill_32k (qwen2's 14 heads, whisper's 6, qwen1.5's 20 and 40,
+starcoder2's and granite's 24 do not divide the 16-way 'model' axis, nor
+do whisper's and granite's vocabs: XLA pads each split, and so does the
+port), each on the one-pod
 (16 x 16) and the two-pod (2 x 16 x 16) mesh, it runs
 ``repro.launch.dryrun.dryrun_one`` (lower and compile on 512 placeholder
 CPU devices) in a process of its own and keeps the record's ``status``,
@@ -27,8 +30,11 @@ ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "tools" / "dryrun_jax_reference.json"
 COMBOS = [(arch, "train_4k") for arch in (
     "granite-moe-3b-a800m", "qwen3-moe-235b-a22b", "jamba-v0.1-52b",
-    "xlstm-1.3b", "qwen2-0.5b")] + [
-    (arch, "prefill_32k") for arch in ("xlstm-1.3b", "qwen2-0.5b")]
+    "xlstm-1.3b", "qwen2-0.5b", "whisper-tiny", "starcoder2-3b",
+    "qwen1.5-4b", "qwen1.5-32b")] + [
+    (arch, "prefill_32k") for arch in ("xlstm-1.3b", "qwen2-0.5b",
+                                       "whisper-tiny",
+                                       "granite-moe-3b-a800m")]
 KEYS = ("status", "memory", "collectives", "n_params", "lower_s")
 
 # one combo: repro.launch.dryrun sets its 512-device XLA flag on import
