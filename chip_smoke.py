@@ -245,6 +245,19 @@
    the tests' small fake meshes under this host's torch (``dryrun
    --small-meshes``: train, prefill and decode on 2 x 2, the FL round on
    2 x 2 x 2): every record ``ok`` with the config's parameter count.
+22. Surface (after the rng draw, before the paper path): the library
+   functions that no path launches a kernel through, on the card
+   against the port on the CPU: ``optim.adamw`` over SURFACE_ADAM_STEPS
+   steps of tests/test_substrate.py's quadratic (params within
+   SURFACE_ADAM_TOL relative of the CPU's, the loss below 1e-3);
+   ``virtual_dataset_gap`` on tests/test_rounds.py's 30 clients (four
+   selections and the empty one) against ``virtual_dataset_gap_device``
+   on the card (within SURFACE_VDS_TOL); ``random_projection`` at
+   SURFACE_PROJECTIONS (the 2^23-value table's route and the direct
+   erfinv's) equal to the CPU's bit for bit; and the im2col ``conv2d``
+   against the library oracle ``conv2d_ref`` at tests/test_sim.py's four
+   shapes (within SURFACE_CONV_TOL of the output's largest magnitude).
+   Prints the phase's seconds.
 
 It prints one JSON line with the kernels' numbers and, last, the JSON
 status line.  ``--profile`` adds a torch.profiler pass before them:
@@ -1734,6 +1747,103 @@ def rng_card_vs_cpu() -> None:
     cpu = rng.normal(rng.PRNGKey(0), (n,), "cpu")
     print(f"rng.normal card vs cpu: {int((card != cpu).sum())} of {n} "
           "elements differ", flush=True)
+
+
+# the surface phase (22.): adamw's steps and its bound against the CPU
+# (the card may fuse multiplies and adds the CPU rounds apart), the host
+# vds gap against the device twin, the projections held bit for bit
+SURFACE_ADAM_STEPS = 200
+SURFACE_ADAM_TOL = 1e-5
+SURFACE_VDS_TOL = 1e-6
+SURFACE_PROJECTIONS = ((2000, 64), (200, 64))
+SURFACE_CONV = (("VALID", 1, 10), ("VALID", 3, 6), ("SAME", 1, 16),
+                ("SAME", 16, 32))
+# of the output's largest magnitude: cuDNN picks its own algorithm
+SURFACE_CONV_TOL = 1e-5
+
+
+def _quad_adamw(device):
+    """tests/test_substrate.py's quadratic under ``adamw(0.1)``."""
+    from repro_torch.optim import adamw, apply_updates
+    init, update = adamw(0.1)
+    p = {"w": torch.zeros(3, device=device), "b": torch.zeros(2,
+                                                             device=device)}
+    s = init(p)
+
+    def loss(q):
+        return ((q["w"] - 3.0) ** 2).sum() + ((q["b"] + 1.0) ** 2).sum()
+
+    for _ in range(SURFACE_ADAM_STEPS):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        g = dict(zip(leaves, torch.autograd.grad(loss(leaves),
+                                                 list(leaves.values()))))
+        u, s = update(g, s, p)
+        p = apply_updates(p, u)
+    return {k: v.cpu() for k, v in p.items()}, float(loss(p)), s.step
+
+
+def surface_path(cuda) -> None:
+    """The port's library functions that no path launches a kernel
+    through, on the card against the CPU (22. above)."""
+    import numpy as np
+    from repro_torch import rng
+    from repro_torch.core import clustering as CL
+    from repro_torch.core import virtual_dataset as VD
+    from repro_torch.models import cnn as CNN
+    t = time.perf_counter()
+    card, card_loss, steps = _quad_adamw(cuda)
+    host, _, _ = _quad_adamw("cpu")
+    rel = max(float(((card[k] - host[k]).abs()
+                     / host[k].abs().clamp_min(1e-30)).max()) for k in host)
+    print(f"surface: adamw {steps} steps, card loss {card_loss!r}, params "
+          f"card vs cpu max rel {rel!r}", flush=True)
+    require(steps == SURFACE_ADAM_STEPS and card_loss < 1e-3,
+            f"adamw on the card: loss {card_loss} after {steps} steps")
+    require(rel <= SURFACE_ADAM_TOL, f"adamw: card vs cpu params {rel} > "
+            f"{SURFACE_ADAM_TOL} relative")
+
+    r = np.random.default_rng(0)
+    labels = [r.integers(0, 10, r.integers(20, 200)) for _ in range(30)]
+    sels = [r.uniform(size=30) > 0.6 for _ in range(4)]
+    sels.append(np.zeros((30,), bool))
+    glob = np.ones((10,)) / 10
+    counts = torch.tensor(VD.client_count_histograms(labels, 10),
+                          device=cuda)
+    gaps = []
+    for sel in sels:
+        host_gap = VD.virtual_dataset_gap(labels, sel, glob, 10, cuda)
+        dev_gap = float(VD.virtual_dataset_gap_device(
+            torch.tensor(sel, device=cuda), counts,
+            torch.tensor(glob, dtype=torch.float32, device=cuda)))
+        gaps.append((host_gap, dev_gap))
+    worst = max(abs(a - b) for a, b in gaps)
+    print(f"surface: virtual_dataset_gap on the card (host, device) "
+          f"{gaps}, max |d| {worst!r}", flush=True)
+    require(worst <= SURFACE_VDS_TOL, f"virtual_dataset_gap vs its device "
+            f"twin: {worst} > {SURFACE_VDS_TOL}")
+
+    for shape in SURFACE_PROJECTIONS:
+        a = CL.random_projection(rng.PRNGKey(0), *shape, cuda).cpu()
+        b = CL.random_projection(rng.PRNGKey(0), *shape, "cpu")
+        differ = int((a != b).sum())
+        print(f"surface: random_projection {shape} card vs cpu: {differ} "
+              f"of {a.numel()} elements differ", flush=True)
+        require(differ == 0, f"random_projection {shape}: {differ} "
+                "elements differ between the card and the CPU")
+
+    for padding, cin, cout in SURFACE_CONV:
+        g = torch.Generator(device="cpu").manual_seed(cin * 100 + cout)
+        x, w, b = (torch.randn(shape, generator=g).to(cuda) for shape in (
+            (4, 14, 14, cin), (5, 5, cin, cout), (cout,)))
+        ref = CNN.conv2d_ref(x, w, b, padding)
+        err = float((CNN.conv2d(x, w, b, padding) - ref).abs().max())
+        bound = SURFACE_CONV_TOL * float(ref.abs().max())
+        print(f"surface: conv2d vs conv2d_ref {padding} {cin}->{cout}: "
+              f"max |d| {err!r} (bound {bound!r})", flush=True)
+        require(err <= bound, f"conv2d vs conv2d_ref {padding} "
+                f"{cin}->{cout}: {err} > {bound}")
+    torch.cuda.synchronize()
+    print(f"surface phase: {time.perf_counter() - t:.2f} s", flush=True)
 
 
 def _kernel_rows(prof):
@@ -3614,6 +3724,8 @@ def main() -> int:
     flash = {label: check_flash(OPS, cuda, label, *shape, seed)
              for seed, (label, *shape) in enumerate(FLASH_SHAPES)}
     rng_card_vs_cpu()
+    phase("surface", t0)
+    surface_path(cuda)
 
     # ---- main path -----------------------------------------------------
     robust = start_robust(card)     # host-bound: beside the next phases

@@ -28,7 +28,7 @@ import torch
 
 from repro_torch import obs, rng
 from repro_torch.configs.base import FLConfig
-from repro_torch.device import synchronize
+from repro_torch.device import resolve_device, synchronize
 from repro_torch.kernels import ops as KOPS
 
 
@@ -76,6 +76,25 @@ def client_gradient_feature(grad_fn: Callable, params, data_x, data_y,
         feats.append(grad_fn(params, {"x": data_x[idx], "y": data_y[idx]}))
     mean_g = {k: sum(f[k] for f in feats) / len(feats) for k in feats[0]}
     return flatten_tree(mean_g) if flatten else mean_g
+
+
+def random_projection(key, in_dim: int, out_dim: int,
+                      device="cuda") -> torch.Tensor:
+    """Fixed Gaussian (Johnson-Lindenstrauss) projection, the whole
+    (in_dim, out_dim) matrix on ``device``: ``normal / sqrt(out_dim)``,
+    bit for bit the JAX package's.  The divisor is a float32 tensor on
+    the device, so the card divides too (with a host scalar its kernel
+    multiplies by the reciprocal).  Fine for tests and small models; the
+    fleet-scale path is :func:`project_features_blocked`, which never
+    holds more than one column block of it."""
+    device = resolve_device(device)
+    scale = torch.full((), out_dim, dtype=torch.float32, device=device)
+    return rng.normal(key, (in_dim, out_dim), device) / torch.sqrt(scale)
+
+
+def project_feature(feat: torch.Tensor, proj: Optional[torch.Tensor]
+                    ) -> torch.Tensor:
+    return feat if proj is None else feat @ proj
 
 
 def project_features_blocked(key, feats: torch.Tensor, out_dim: int,

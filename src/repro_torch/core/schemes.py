@@ -36,12 +36,13 @@ from repro_torch.device import resolve_device
 from repro_torch.sim import dynamics as DYN
 
 Metrics = Dict[str, torch.Tensor]
+SelectFn = Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 
 
 @dataclass(frozen=True)
 class SelectionScheme:
     name: str
-    select: Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+    select: SelectFn
     init_state: Callable[..., Optional[Any]]
     update_state: Callable[..., Tuple[Optional[Any], Metrics]]
     # True when init_state returns a state: such a scheme logs its budget

@@ -16,6 +16,11 @@ import torch
 
 from repro_torch.kernels import build as B
 
+# the score of a masked key: csrc/flash_attention.cu's NEG_INF and its
+# oracle's (kernels/ref.py); not -inf, so a row that sees no key stays
+# finite, as in the Pallas kernel
+NEG_INF = -1e30
+
 LIBRARY = B.CudaLibrary("flash_attention.cu", {
     "flash_attention": ([B.P, B.P, B.P, B.P, B.I, B.I, B.I, B.I, B.I, B.I,
                          B.F, B.I, B.I, B.P], B.I),

@@ -13,6 +13,8 @@ import math
 
 import torch
 
+from repro_torch.kernels.flash_attention import NEG_INF
+
 
 def _batched(c: torch.Tensor):
     return (c[None], True) if c.dim() == 2 else (c, False)
@@ -73,13 +75,13 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         window: int = 0) -> torch.Tensor:
     """Naive attention with an fp32 softmax: q (B, Sq, H, hd), k, v
     (B, Sk, H, hd) -> (B, Sq, H, hd) in q's type; masked scores are
-    -1e30.  It is also the model's ``naive`` attention."""
+    NEG_INF.  It is also the model's ``naive`` attention."""
     sq, sk, hd = q.shape[1], k.shape[1], q.shape[3]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
                      k.float()) / math.sqrt(hd)
     mask = attention_mask(torch.arange(sq, device=q.device),
                           torch.arange(sk, device=q.device), causal=causal,
                           window=window)
-    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", w, v.float()).to(q.dtype)

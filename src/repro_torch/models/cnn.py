@@ -34,18 +34,35 @@ def _uniform_init(key, shape, fan_in: int, device) -> torch.Tensor:
     return rng.uniform(key, shape, -std, std, device)
 
 
+def _pad_same(x: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
+    """Stride-1 "SAME" padding of an NHWC ``x`` as XLA pads it: k - 1
+    in all, the odd one at the end."""
+    ph, pw = (kh - 1) // 2, (kw - 1) // 2
+    return F.pad(x, (0, 0, pw, kw - 1 - pw, ph, kh - 1 - ph))
+
+
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
            padding: str = "VALID") -> torch.Tensor:
     """x: (B, H, W, C); w: (kh, kw, cin, cout) — im2col formulation."""
     kh, kw, cin, cout = w.shape
     if padding == "SAME":
-        ph, pw = (kh - 1) // 2, (kw - 1) // 2
-        x = F.pad(x, (0, 0, pw, kw - 1 - pw, ph, kh - 1 - ph))
+        x = _pad_same(x, kh, kw)
     oh, ow = x.shape[1] - kh + 1, x.shape[2] - kw + 1
     cols = [x[:, i:i + oh, j:j + ow, :]
             for i in range(kh) for j in range(kw)]
     patches = torch.cat(cols, dim=-1)            # (B, oh, ow, kh*kw*cin)
     return patches @ w.reshape(kh * kw * cin, cout) + b
+
+
+def conv2d_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               padding: str = "VALID") -> torch.Tensor:
+    """The library convolution (``F.conv2d`` over NHWC/HWIO through
+    permutes): the oracle for :func:`conv2d`'s im2col rewrite, as the
+    JAX package's ``conv2d_lax`` is; never called on a path."""
+    if padding == "SAME":
+        x = _pad_same(x, w.shape[0], w.shape[1])
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1))
+    return y.permute(0, 2, 3, 1) + b
 
 
 def maxpool2(x: torch.Tensor) -> torch.Tensor:

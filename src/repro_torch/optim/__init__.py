@@ -1,4 +1,4 @@
-from repro_torch.optim.optimizers import (OptState, apply_updates,
+from repro_torch.optim.optimizers import (OptState, adamw, apply_updates,
                                           fedprox_grad, sgd)
 
-__all__ = ["OptState", "apply_updates", "fedprox_grad", "sgd"]
+__all__ = ["OptState", "adamw", "apply_updates", "fedprox_grad", "sgd"]

@@ -33,7 +33,7 @@ runtimes add their host packing seconds up in ``host_pack_s``.
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Protocol
 
 import numpy as np
 import torch
@@ -65,6 +65,47 @@ def tree_weighted_sum(trees: List[Tree], weights: np.ndarray) -> Tree:
     for t, wk in zip(trees[1:], w[1:]):
         out = {k: out[k] + t[k] * wk for k in out}
     return out
+
+
+class CohortRuntime(Protocol):
+    """What FederatedServer needs from an execution backend; each of
+    the four runtimes below has it."""
+
+    name: str
+
+    def train_cohort(self, global_params: Tree, sel_idx: np.ndarray,
+                     history: np.ndarray) -> Optional[Tree]:
+        """Run local training for the winners and return the aggregated
+        global params (None for an empty cohort). ``history`` is a HOST
+        array (the server's participation mirror): per-winner shuffle
+        seeds index it directly, so the control plane never waits on
+        the device for them."""
+        ...
+
+    def train_client(self, global_params: Tree, client_idx: int,
+                     history_count: int) -> Tree:
+        """One client's local params after its local epochs."""
+        ...
+
+    def train_cohort_updates(self, global_params: Tree, sel_idx: np.ndarray,
+                             history: np.ndarray) -> Optional[UpdateBatch]:
+        """Defended-path stage 3: the same local training, but instead
+        of the fused FedAvg aggregate return the cohort's per-client
+        flat param deltas as an UpdateBatch (core/aggregation.py): (C, D)
+        deltas on the runtime's device, host weights and client ids,
+        padding rows all-zero with id -1, for the server's screened
+        aggregation.
+        None for an empty cohort."""
+        ...
+
+    def cluster_features(self, global_params: Tree, key,
+                         feature_kind: str) -> Optional[torch.Tensor]:
+        """(N, D) *raw* clustering features, or None to use the
+        per-client loop in core/clustering.py.  Either way the blocked JL
+        projection and k-means run downstream in
+        ``clustering.cluster_clients``, so every runtime shares one code
+        path from raw features onward."""
+        ...
 
 
 class SequentialRuntime:
@@ -388,7 +429,7 @@ class DeviceRuntime(VectorizedRuntime):
 
 
 def make_runtime(cfg: FLConfig, adapter: ModelAdapter, x, y, clients,
-                 device="cuda") -> SequentialRuntime:
+                 device="cuda") -> CohortRuntime:
     if cfg.runtime == "sequential":
         return SequentialRuntime(cfg, adapter, x, y, clients, device)
     if cfg.runtime == "vectorized":

@@ -1,6 +1,8 @@
 """The port's CNNs against repro.models.cnn: logits, loss and every
 gradient leaf on parameters carried across through numpy; the interop
-round trip; the sorted-key gradient-feature flatten; the optimizer."""
+round trip; the sorted-key gradient-feature flatten; the optimizer; the
+im2col ``conv2d`` against the library oracle ``conv2d_ref``, and that
+oracle against the JAX package's ``conv2d_lax`` (both within 1e-4)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -179,3 +181,23 @@ def test_sgd_steps_match_jax(momentum, prox):
     for k in pj:
         np.testing.assert_allclose(p_t[k].numpy(), np.asarray(p_j[k]),
                                    rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("padding,cin,cout", [
+    ("VALID", 1, 10), ("VALID", 3, 6), ("SAME", 1, 16), ("SAME", 16, 32),
+])
+def test_conv2d_im2col_matches_library_oracle(padding, cin, cout):
+    """tests/test_sim.py's four cases: the im2col rewrite against
+    F.conv2d, and F.conv2d against lax.conv_general_dilated."""
+    r = np.random.default_rng(cin * 100 + cout)
+    x = r.normal(size=(4, 14, 14, cin)).astype(np.float32)
+    w = r.normal(size=(5, 5, cin, cout)).astype(np.float32)
+    b = r.normal(size=(cout,)).astype(np.float32)
+    xt, wt, bt = torch.tensor(x), torch.tensor(w), torch.tensor(b)
+    got = TCNN.conv2d(xt, wt, bt, padding)
+    ref = TCNN.conv2d_ref(xt, wt, bt, padding)
+    lax_ref = np.asarray(JCNN.conv2d_lax(jnp.asarray(x), jnp.asarray(w),
+                                         jnp.asarray(b), padding))
+    assert got.shape == ref.shape == lax_ref.shape
+    assert float((got - ref).abs().max()) < 1e-4
+    assert float(np.abs(ref.numpy() - lax_ref).max()) < 1e-4

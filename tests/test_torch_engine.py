@@ -7,7 +7,10 @@ T0 2, seed 3).
 Tolerances: aggregated params and features within 1e-4 absolute (the
 reference's own bound between its runtimes, tests/test_sim.py), since
 the vmapped gradients sum in another order than the per-client ones;
-selection logs identical."""
+selection logs identical.  Each of the four runtimes has every member
+of the ``CohortRuntime`` protocol, with its parameters."""
+import inspect
+
 import jax
 import numpy as np
 import pytest
@@ -27,7 +30,7 @@ from repro_torch.core.server import FederatedServer as TServer
 from repro_torch.launch import train as TRAIN
 from repro_torch.optim import apply_updates, sgd
 from repro_torch.sim.cohort import pack_feature_pass
-from repro_torch.sim.runtime import make_runtime
+from repro_torch.sim.runtime import CohortRuntime, make_runtime
 
 # one intra-op thread: pytest-xdist runs several workers on the same
 # cores, where torch's spinning OpenMP pools slow every test many-fold
@@ -324,3 +327,32 @@ def test_cli_runtime_selects_as_sequential(cli_sequential, runtime):
     assert out["selected"] == cli_sequential["selected"]
     np.testing.assert_allclose(out["test_loss"], cli_sequential["test_loss"],
                                rtol=1e-4)
+
+
+def _protocol_members(proto):
+    """The methods and attributes a Protocol class declares."""
+    return sorted(set(proto.__annotations__) | {
+        k for k, v in vars(proto).items()
+        if callable(v) and not k.startswith("_")})
+
+
+def test_cohort_runtime_protocol_has_the_jax_members():
+    from repro.sim.runtime import CohortRuntime as JCohortRuntime
+    assert _protocol_members(CohortRuntime) == _protocol_members(
+        JCohortRuntime)
+
+
+@pytest.mark.parametrize("runtime", ["sequential", "vectorized", "sharded",
+                                     "device"])
+def test_runtimes_implement_cohort_runtime(data, runtime):
+    train, clients, _ = data
+    rt = _port(KW, runtime, train, clients)
+    assert rt.name == runtime
+    for member in _protocol_members(CohortRuntime):
+        assert hasattr(rt, member), f"{runtime} lacks {member}"
+        if member == "name":
+            continue
+        want = list(inspect.signature(getattr(CohortRuntime, member))
+                    .parameters)[1:]
+        assert list(inspect.signature(getattr(rt, member)).parameters) \
+            == want, f"{runtime}.{member}"

@@ -1,8 +1,9 @@
 """The port stands alone: no module of src/repro_torch/ (and no line of
 chip_smoke.py, of the port's examples, examples/*_torch.py, of the
 scripts tools/flash_fp32_timing.py, tools/cohort_mesh_check.py and
-tools/dryrun_peak.py, or of tests/test_torch_small_mesh.py and
-tests/test_torch_padded_split.py, which run on a host without JAX)
+tools/dryrun_peak.py, or of tests/test_torch_small_mesh.py,
+tests/test_torch_padded_split.py and tests/test_torch_coverage.py, which
+run on a host without JAX)
 imports jax or the JAX package, and importing the CLI
 leaves jax out of sys.modules."""
 import ast
@@ -18,7 +19,8 @@ FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "flash_fp32_timing.py",
     ROOT / "tools" / "cohort_mesh_check.py", ROOT / "tools" / "dryrun_peak.py",
     ROOT / "tests" / "test_torch_small_mesh.py",
-    ROOT / "tests" / "test_torch_padded_split.py"] + [
+    ROOT / "tests" / "test_torch_padded_split.py",
+    ROOT / "tests" / "test_torch_coverage.py"] + [
     ROOT / "examples" / f"{name}_torch.py" for name in (
         "quickstart", "scheme_comparison", "fl_pretrain_lm",
         "serve_decode")]

@@ -1,6 +1,8 @@
 """The port's round control plane against repro.core.rounds: winner
 masks, s_min and history bit for bit over 20 rounds, energy within 1e-6;
-tie-heavy winner ranking; zero-winner rounds."""
+tie-heavy winner ranking; zero-winner rounds; the host virtual-dataset
+helpers against repro.core.virtual_dataset (histograms and sizes equal,
+gap within 1e-6) and against the port's device twin (within 1e-6)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,11 +14,13 @@ from repro.core import auction as JA
 from repro.core import energy as JE
 from repro.core import rounds as JR
 from repro.core import selection as JS
+from repro.core import virtual_dataset as JVD
 from repro_torch import interop, rng
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import auction as TA
 from repro_torch.core import energy as TE
 from repro_torch.core import rounds as TR
+from repro_torch.core import virtual_dataset as TVD
 
 # one intra-op thread: pytest-xdist runs several workers on the same
 # cores, where torch's spinning OpenMP pools slow every test many-fold
@@ -193,3 +197,47 @@ def test_dynamics_round_step_raises(profile):
         for k in jm:
             np.testing.assert_allclose(float(tm[k]), float(jm[k]),
                                        rtol=1e-5, atol=1e-6, err_msg=k)
+
+
+def _vds_case():
+    """tests/test_rounds.py's data: 30 clients' labels over 10 classes,
+    four random selections and the empty one."""
+    r = np.random.default_rng(0)
+    n_clients, num_classes = 30, 10
+    labels = [r.integers(0, num_classes, r.integers(20, 200))
+              for _ in range(n_clients)]
+    sels = [r.uniform(size=n_clients) > 0.6 for _ in range(4)]
+    return labels, sels + [np.zeros((n_clients,), bool)], num_classes
+
+
+@pytest.mark.parametrize("sel_index", range(5))
+def test_virtual_dataset_helpers_match_jax(sel_index):
+    labels, sels, c = _vds_case()
+    sel = sels[sel_index]
+    global_hist = np.ones((c,)) / c
+    sizes = np.array([len(lab) for lab in labels])
+    want = np.asarray(JVD.virtual_dataset_histogram(labels, sel, c))
+    got = TVD.virtual_dataset_histogram(labels, sel, c, "cpu")
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    if sel.any():
+        cat = np.concatenate([labels[i] for i in np.nonzero(sel)[0]])
+        np.testing.assert_array_equal(
+            TVD.label_histogram(torch.tensor(cat), c).numpy(),
+            np.asarray(JVD.label_histogram(jnp.asarray(cat), c)))
+    else:
+        np.testing.assert_array_equal(got.numpy(), np.full(c, 1.0 / c,
+                                                           np.float32))
+    gap = TVD.virtual_dataset_gap(labels, sel, global_hist, c, "cpu")
+    assert isinstance(gap, float)
+    np.testing.assert_allclose(
+        gap, JVD.virtual_dataset_gap(labels, sel, global_hist, c),
+        rtol=0, atol=1e-6)
+    size = TVD.virtual_dataset_size(sizes, sel)
+    assert isinstance(size, int)
+    assert size == JVD.virtual_dataset_size(sizes, sel)
+    dev = TVD.virtual_dataset_gap_device(
+        torch.tensor(sel), torch.tensor(TVD.client_count_histograms(labels,
+                                                                    c)),
+        torch.tensor(global_hist, dtype=torch.float32))
+    np.testing.assert_allclose(float(dev), gap, rtol=0, atol=1e-6)
