@@ -754,7 +754,10 @@ WHISPER_LOGIT_TOL = 1e-4
 # the vlm serving path: phi-3-vision-4.2b's CONFIG, a 4,096-token prefill
 # (its first 256 slots the image prefix), 256 decode steps (at 64 steps
 # the bf16 decode reads 0.0202 of the first 64 positions' largest logit,
-# over LOGITS_REL_TOL: PERF.md §7)
+# over LOGITS_REL_TOL: the reading counts the bf16 logits' rounding
+# steps, about 3 of the largest logit at 32 layers; the JAX package's
+# reads as high at the depths the CPU holds, and cuBLAS's bf16
+# reductions move nothing, tools/vlm_bf16_witness.py, PERF.md §7)
 VLM_PREFILL, VLM_DECODE = 4096, 256
 # the examples path: (name, [script, args...]), each run on the card
 EXAMPLE_RUNS = (

@@ -1,13 +1,14 @@
 """The port's dry run (``launch/dryrun.py``) on small fake meshes: qwen2-0.5b's
 smoke config through the train step on a 2 x 2 (data, model) mesh and
-through the FL round on a 2 x 2 x 2 (pod, data, model) mesh.  Each runs
-in a subprocess of its own, side by side, so the fake process group
-never meets another test.
+on a 2 x 2 x 2 (pod, data, model) mesh, and through the FL round on the
+latter.  Each runs in a subprocess of its own, side by side, so the fake
+process group never meets another test.
 The records are held to the JAX package: their keys, ``n_params`` and
 ``model_flops`` from its parameter counts, the argument bytes from its
-sanitized specs, no cross-pod bytes without 'pod', and with the FL round
-exactly the FedAvg's all-reduce of the device's parameter shard in
-float32.  The port's forward on plain tensors, with the constraint
+sanitized specs, no cross-pod bytes without 'pod', with the two-pod
+train step exactly ``_pod_mean``'s all-reduce of each parameter's local
+shard in the gradient's type, and with the FL round exactly the
+FedAvg's all-reduce of the device's parameter shard in float32.  The port's forward on plain tensors, with the constraint
 points in place, is held to JAX's at test_torch_transformer.py's bound.
 Importing the dry run starts no process group and loads no JAX."""
 import json
@@ -52,6 +53,10 @@ if sys.argv[1] == "pod1":
     rec = DR.dryrun_one("{ARCH}", "small", False, device="cpu", mesh=m,
                         cfg=cfg, shape=shape)
     rec["headline"] = DR.headline(rec)
+elif sys.argv[1] == "pod2":
+    m = fake_mesh((2, 2, 2), ("pod", "data", "model"), "cpu")
+    rec = DR.dryrun_one("{ARCH}", "small", True, device="cpu", mesh=m,
+                        cfg=cfg, shape=shape)
 else:
     m = fake_mesh((2, 2, 2), ("pod", "data", "model"), "cpu")
     assert dist.get_world_size() == 8
@@ -72,13 +77,13 @@ def _env():
 
 @pytest.fixture(scope="module")
 def records():
-    """The one-pod train step and the two-pod FL round, each in a
-    process of its own (run side by side)."""
+    """The one-pod and two-pod train steps and the two-pod FL round, each
+    in a process of its own (run side by side)."""
     procs = {k: subprocess.Popen([sys.executable, "-c", RUN, k],
                                  stdout=subprocess.PIPE,
                                  stderr=subprocess.PIPE, text=True,
                                  env=_env())
-             for k in ("pod1", "fl")}
+             for k in ("pod1", "pod2", "fl")}
     out = {}
     for k, p in procs.items():
         stdout, stderr = p.communicate(timeout=600)
@@ -159,6 +164,22 @@ def test_cross_pod_bytes(records):
     fl = records["fl"]["collectives"]
     assert fl["cross_pod"] == 4 * sum(n for n, _ in n_local)
     assert fl["all-reduce"] >= fl["cross_pod"]
+
+
+def test_pod_mean_moves_each_gradient_shard_once(records):
+    """A train step with 'pod': each pod steps on its half of the batch
+    (the argument bytes are JAX's on the (pod, data, model) mesh), and
+    what crosses pods is ``_pod_mean``'s all-reduce of each parameter's
+    local shard in the gradient's type (the parameter's), once."""
+    axes = {"pod": 2, "data": 2, "model": 2}
+    n_local, batch = _jax_local_bytes(axes, multi_pod=True)
+    rec = records["pod2"]
+    assert rec["status"] == "ok" and rec["n_devices"] == 8
+    assert rec["memory"]["argument_size_in_bytes"] == \
+        sum(n * size for n, size in n_local) + batch
+    coll = rec["collectives"]
+    assert coll["cross_pod"] == sum(n * size for n, size in n_local)
+    assert coll["all-reduce"] >= coll["cross_pod"]
 
 
 def test_forward_with_constraint_points_matches_jax():

@@ -16,7 +16,12 @@ metadata, without its NaN checks).  Whenever the live bytes pass the
 last snapshot by 0.5 % it snapshots the live storages, so the last
 snapshot is within 0.5 % of the peak.  It prints the record's headline,
 the op at the peak, the live bytes by site and the largest live
-tensors, and writes them as JSON with ``--out``.  ``--layers`` cuts
+tensors, and writes them as JSON with ``--out``.  It also lists every
+collective whose group spans the ``pod`` mesh dimension (the record's
+``cross_pod``), by kind, operand type and the port's line that issued
+it, beside what ``launch.dryrun._pod_mean`` must move: the sum over the
+parameters of each local shard's bytes in the gradient's type.
+``--layers`` cuts
 the arch's depth (a multiple of its cycle), for a quick look on a small
 host; the full-size shapes are for the card's host.
 """
@@ -75,6 +80,21 @@ def _node_site():
     return f"{node.name()} of {fwd}"
 
 
+def _caller():
+    """The innermost frame of the port (its launch code included, the
+    tally's own frames not) as 'path:line (function)'."""
+    f = sys._getframe(2)
+    while f is not None:
+        name = f.f_code.co_filename
+        if "repro_torch" in name and not (
+                name.endswith("launch/dryrun.py")
+                and f.f_code.co_name in ("dispatch", "_collective")):
+            return (f"{name.rsplit('src/', 1)[-1]}:{f.f_lineno} "
+                    f"({f.f_code.co_name})")
+        f = f.f_back
+    return "?"
+
+
 def make_mode(base):
     class PeakMode(base):
         def __init__(self, *a, **k):
@@ -82,6 +102,19 @@ def make_mode(base):
             self.meta = {}
             self.snap_at = 0
             self.snapshot = None
+            self.cross = []
+
+        def _collective(self, func, args):
+            before = self.coll["cross_pod"]
+            super()._collective(func, args)
+            moved = self.coll["cross_pod"] - before
+            if moved:
+                t = DR._tensors(args[0])[0]
+                self.cross.append({
+                    "kind": DR._KINDS[func._schema.name.partition("::")[2]
+                                      .rstrip("_")],
+                    "shape": list(t.shape), "dtype": str(t.dtype),
+                    "bytes": moved, "site": _caller()})
 
         def _storage(self, out):
             before = set(self._storages)
@@ -153,6 +186,18 @@ def main() -> None:
         return lambda *a, **k: modes.append(mode(*a, **k)) or modes[-1]
 
     DR._make_tally_mode = patched
+    pod_mean, owed = DR._pod_mean, []
+
+    def counted_pod_mean(mesh):
+        sync = pod_mean(mesh)
+
+        def counted(grads, params):
+            owed.append(sum(params[k].to_local().numel() * g.element_size()
+                            for k, g in grads.items()))
+            return sync(grads, params)
+        return counted
+
+    DR._pod_mean = counted_pod_mean
     torch.autograd.set_detect_anomaly(True, check_nan=False)
     cfg = get_config(args.arch)
     if args.layers:
@@ -171,9 +216,22 @@ def main() -> None:
     for r in snap["largest"][:args.top]:
         print(f"  {r['bytes'] / 2**20:9.1f} MiB {r['dtype']} {r['shape']} "
               f"{r['phase']}: {r['site']}")
+    cross = defaultdict(lambda: [0, 0])
+    for c in tally.cross:
+        row = cross[f"{c['kind']} {c['dtype']} at {c['site']}"]
+        row[0] += 1
+        row[1] += c["bytes"]
+    listed = sum(c["bytes"] for c in tally.cross)
+    print(f"cross-pod collectives: {len(tally.cross)} ops, {listed} B "
+          f"(the record's cross_pod {rec['collectives']['cross_pod']} B; "
+          f"_pod_mean's parameter shards in the gradients' types "
+          f"{sum(owed)} B)")
+    for where, (n, b) in sorted(cross.items(), key=lambda kv: -kv[1][1]):
+        print(f"  {b / 2**20:10.2f} MiB in {n:4d} ops: {where}")
     if args.out:
         Path(args.out).write_text(json.dumps(
-            {"record": rec, "peak": tally.peak, "snapshot": snap},
+            {"record": rec, "peak": tally.peak, "snapshot": snap,
+             "cross_pod": tally.cross, "pod_mean_owed": sum(owed)},
             indent=1) + "\n")
 
 
